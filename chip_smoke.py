@@ -2,12 +2,13 @@
 """Smoke test of the PyTorch/CUDA port (``luciddreamer_tpu_torch``) on one
 NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
 
-1. Set-up: prints the card's name and power limit, builds the forward
-   blend kernel K1 (``luciddreamer_tpu_torch/csrc/blend_fwd.cu``) with nvcc
-   into ``build/kernels/`` and times the build.
+1. Set-up: prints the card's name and power limit, builds the kernels K1
+   (``csrc/blend_fwd.cu``), K2 (``csrc/blend_bwd.cu``) and K3
+   (``csrc/repack_cols.cu``) with nvcc, one process each, all at once, into
+   ``build/kernels/``, and prints the build time and ptxas's lines.
 2. K1 against its plain PyTorch version on a 20k-Gaussian 512x512 scene:
    render/final_T/acc atol 1e-5, depth atol 1e-4, n_contrib equal.
-3. Main path: builds the 1M-Gaussian, SH-degree-3 scene from seed 42,
+3. Serving path: builds the 1M-Gaussian, SH-degree-3 scene from seed 42,
    saves it to PLY and loads it back through the port's app class, and
    renders the first 30 frames of the ``llff`` path at 512x512 through
    ``video.render_frames(device="cuda")``.  K1's launch count over that run
@@ -17,10 +18,35 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    kernel multiplies T pair by pair, the plain version by chunk cumprod,
    so a pixel whose T lands on the 1e-4 latch within rounding may stop one
    pair apart).
-5. Times per call at that shape, two rounds of 20 calls after a warm-up,
-   for preprocess, binning, K1 and the whole frame: device time (CUDA
-   events) and host wall time; the plain blend's device time; the frame's
-   kernels by device time (torch.profiler); K1's work and bound.
+5. Serving times per call at that shape, two rounds of 20 calls after a
+   warm-up, for preprocess, binning, K1 and the whole frame: device time
+   (CUDA events) and host wall time; the plain blend's device time; the
+   frame's kernels by device time (torch.profiler); K1's work and bound.
+6. K2 and K3 against their plain versions at llff frame 0, 512x512, with
+   random cotangents from a seed: K2 at 20k Gaussians on every channel
+   within 5e-4 of the channel's max |ref| on rows [0, num_pairs) and zero
+   beyond; at 1M the same on >= 99.9% of rows (the latch, as in 4), with
+   the relative L2 error per channel; K3 bit-equal at 1M.  The binning VJP
+   (K3, float64 prefix sum, boundary gather) against a float64 index_add
+   at 1M, beside the same VJP with an fp32 prefix sum.  The whole
+   gradient, ``backend="cuda"`` against ``backend="torch"`` (the plain
+   forward and backward through the same autograd Function), all six
+   parameter groups within 5e-4 of the group's max, at 20k and 1M.
+7. Training path: the bench scene padded to capacity 1.2M with dead rows;
+   targets are its renders at the first 4 llff poses; the trained scene is
+   the same with features_dc and opacity perturbed from seed 43;
+   ``GSConfig(iterations=40, densify_from_iter=10,
+   densification_interval=10)`` and ``Trainer(device="cuda")`` with its
+   default pair budget.  Every loss finite, the mean of the last 5 below
+   the first 5, the alive count changed by densify, K1, K2 and K3 launched
+   once per step run, and no overflowed step committed.  Then
+   ``create_from_pcd`` on 400k points, timed, its knn checked on 1,000
+   rows against a float64 brute force.
+8. Training times at the main-path shape, device ms by events and host
+   wall ms, two rounds: the whole step, its forward, its backward, K2, the
+   binning VJP with K3, K3, K3's library call, Adam, densify; the plain
+   K2's time; a torch.profiler table of one step and the device's busy
+   share; K2's and K3's bounds; the peak device memory of a step.
 
 Prints the kernels line and the card line, then the result line last.
 Exits non-zero, printing no result, when any phase fails or no CUDA device
@@ -39,13 +65,18 @@ import torch
 ROOT = Path(__file__).resolve().parent
 P_FULL = 1_000_000
 P_SMALL = 20_000
+CAPACITY = 1_200_000          # the largest scene the app keeps
 N_FRAMES = 30
 H = W = 512
+TRAIN_VIEWS = 4
+TRAIN_ITERS = 40
+PCD_POINTS = 400_000          # the largest point cloud the app builds from
+KERNELS = ("blend_fwd", "blend_bwd", "repack_cols")
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM3 rate
-# and fp32 rate outside the tensor cores.  The special-function rate for
-# exp is 16 MUFU ops/clk/SM (Hopper architecture white paper) x 132 SMs x
-# 1.98 GHz boost clock.
+# and fp32 rate outside the tensor cores.  The special-function rate (exp,
+# reciprocal) is 16 MUFU ops/clk/SM (Hopper architecture white paper) x 132
+# SMs x 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
@@ -54,11 +85,26 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # w and five accumulations, 12 FLOPs.  Bytes per pair: the 11 channels read.
 FLOPS_EVAL, FLOPS_EXP_PATH, FLOPS_COMMIT = 11, 1, 12
 BYTES_PER_PAIR = 11 * 4
+# K2 per committed product, beyond the forward's evaluation: 1-alpha,
+# test_T, w (3); q (8); the running prefix and suffix (3); dalpha (4, one
+# of them a divide, also one SFU reciprocal); dpower (1); the 10 gradient
+# terms (24); and one add into each of the 10 per-pair sums.
+FLOPS_K2_COMMIT = 3 + 8 + 3 + 4 + 1 + 24 + 10
+K2_READ_PER_PAIR = 11 * 4
+K2_WRITE_PER_PAIR = 10 * 4
+K2_PIXEL_BYTES = (6 + 6) * 4       # 6 saved state and 6 cotangent rows
+K3_BYTES_READ = 10 * 4             # per live row
+K3_BYTES_ORDER = 8                 # per slot
+K3_BYTES_WRITE = 10 * 4            # per slot
 
 
-def fail(msg: str) -> int:
-    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
-    return 1
+class SmokeFailure(Exception):
+    pass
+
+
+def check(ok: bool, msg: str):
+    if not ok:
+        raise SmokeFailure(msg)
 
 
 def make_scene(P, seed, device):
@@ -102,9 +148,9 @@ def timed(fn, reps):
     return start.elapsed_time(end) / reps, wall_ms
 
 
-def device_profile(fn, n):
+def device_profile(fn, n, top=8):
     """torch.profiler over ``n`` calls: device kernel ms and host wall ms
-    per call, and the frame's kernels by device time."""
+    per call, and the kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -119,13 +165,13 @@ def device_profile(fn, n):
     kernels = [(e.key, e.self_device_time_total / 1e3 / n)
                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda kv: -kv[1])
-    return sum(t for _, t in kernels), wall * 1e3 / n, kernels[:8]
+    return sum(t for _, t in kernels), wall * 1e3 / n, kernels[:top]
 
 
 def k1_work(bins, grid_x, chunk=128):
-    """What K1 must compute on these bins, walked like the plain version:
-    per pixel, the products evaluated before its done latch, those with
-    power <= 0 (one exp each) and the commits."""
+    """What the blend must compute on these bins, walked like the plain
+    version: per pixel, the products evaluated before its done latch, those
+    with power <= 0 (one exp each) and the commits."""
     from luciddreamer_tpu_torch.render import blend_math, torch_blend
     from luciddreamer_tpu_torch.render.binning import (
         A_CA, A_CB, A_CC, A_OP, A_VALID, A_X, A_Y)
@@ -163,13 +209,34 @@ def k1_work(bins, grid_x, chunk=128):
     return n_eval, n_exp, n_commit
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        return fail("no CUDA device")
-    # the plain versions run on the card too: full fp32 products
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def bound_of(nbytes, flops, sfu_ops):
+    """(bound ms, "bytes" or "operations") on the published peaks."""
+    bound = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "operations": max(flops / FP32_FLOPS_PER_S, sfu_ops / SFU_OPS_PER_S) * 1e3,
+    }
+    by = max(bound, key=bound.get)
+    return bound[by], by, bound
 
+
+def print_build_report():
+    from luciddreamer_tpu_torch.render import kernels
+
+    t0 = time.time()
+    kernels.build(*KERNELS)
+    print(f"[build] {', '.join(KERNELS)} built in {time.time() - t0:.1f} s "
+          "(one nvcc each, in parallel)")
+    for name in KERNELS:
+        print(f"[build] {name}: {kernels.library_path(name).name}")
+        for line in kernels.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[build]   {line.strip()}")
+
+
+# ---------------------------------------------------------------- serving
+
+def serving(bg, dev):
+    """Phases 2-5; returns (app, cams, K1 serving record)."""
     from luciddreamer_tpu_torch.app import LucidDreamerTPU
     from luciddreamer_tpu_torch.core.transforms import make_camera
     from luciddreamer_tpu_torch.model.ply import save_ply
@@ -180,34 +247,12 @@ def main() -> int:
         default_pair_capacity, render_tiled)
     from luciddreamer_tpu_torch.video import render_frames
 
-    dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(f"card: {torch.cuda.get_device_name(0)} | {smi}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
-
-    # ---- 1. set-up: build K1 ----
-    t0 = time.time()
-    cuda_blend.build()
-    print(f"[build] K1 built in {time.time() - t0:.1f} s "
-          f"({cuda_blend.library_path().name})")
-    log = cuda_blend.library_path().with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "Compiling" in line or "spill" in line:
-                print(f"[build] {line.strip()}")
-
-    # ---- 2. K1 against its plain version on the 20k scene ----
     def compare(params, cam, tag):
         with torch.no_grad():
             out = render_tiled(params, cam, bg, chunk=128, backend="cuda")
             ref = render_tiled(params, cam, bg, chunk=128, backend="torch")
         torch.cuda.synchronize()
-        if bool(out["overflow"]):
-            raise RuntimeError(f"{tag}: pair overflow")
+        check(not bool(out["overflow"]), f"{tag}: pair overflow")
         err = {k: float((out[k] - ref[k]).abs().max())
                for k in ("render", "depth", "acc", "final_T")}
         nc_eq = float((out["n_contrib"] == ref["n_contrib"]).float().mean())
@@ -219,16 +264,16 @@ def main() -> int:
               + f" mean|d rgb| {mean_rgb:.3e} n_contrib equal {nc_eq:.6f}")
         return out, err, nc_eq, mean_rgb, finite
 
-    bg = torch.zeros(3, device=dev)
+    # ---- 2. K1 against its plain version on the 20k scene ----
     small = make_scene(P_SMALL, seed=7, device=dev)
     cam0 = make_camera(np.eye(4), 0.8279, 0.8279, W, H, device=dev)
     _, err, nc_eq, _, finite = compare(small, cam0, "20k 512x512")
-    if not finite or err["render"] > 1e-5 or err["final_T"] > 1e-5 \
-            or err["acc"] > 1e-5 or err["depth"] > 1e-4 or nc_eq != 1.0:
-        return fail("K1 disagrees with the plain version on the 20k scene")
+    check(finite and err["render"] <= 1e-5 and err["final_T"] <= 1e-5
+          and err["acc"] <= 1e-5 and err["depth"] <= 1e-4 and nc_eq == 1.0,
+          "K1 disagrees with the plain version on the 20k scene")
     del small
 
-    # ---- 3. main path at full size ----
+    # ---- 3. serving path at full size ----
     t0 = time.time()
     scene = make_scene(P_FULL, seed=42, device="cpu")
     app = LucidDreamerTPU(device="cuda")
@@ -237,58 +282,56 @@ def main() -> int:
         path = str(Path(tmp) / "scene.ply")
         save_ply(scene, path)
         app.load_ply(path)
-    if app.params.capacity != P_FULL or not app.params.xyz.is_cuda:
-        return fail("PLY round trip did not give the 1M scene on the card")
-    if not torch.equal(app.params.xyz.cpu(), scene.xyz.detach()):
-        return fail("PLY round trip changed the means")
+    check(app.params.capacity == P_FULL and app.params.xyz.is_cuda,
+          "PLY round trip did not give the 1M scene on the card")
+    check(torch.equal(app.params.xyz.cpu(), scene.xyz.detach()),
+          "PLY round trip changed the means")
     del scene
     cams = app.preset_cameras("llff")[:N_FRAMES]
-    print(f"[main] scene built, saved and loaded in {time.time() - t0:.1f} s")
+    print(f"[serve] scene built, saved and loaded in {time.time() - t0:.1f} s")
 
     torch.cuda.synchronize()
-    cuda_blend.blend_tiles.launches = 0
+    cuda_blend.blend_fwd.launches = 0
     t0 = time.time()
     rgbs, depths = render_frames(app.params, cams, bg, active_sh_degree=3,
                                  device="cuda")
     torch.cuda.synchronize()
     main_s = time.time() - t0
-    k1_launches = cuda_blend.blend_tiles.launches
-    print(f"[main] {N_FRAMES} frames in {main_s:.2f} s host time, "
+    k1_launches = cuda_blend.blend_fwd.launches
+    print(f"[serve] {N_FRAMES} frames in {main_s:.2f} s host time, "
           f"K1 launches {k1_launches}")
-    if k1_launches != N_FRAMES:
-        return fail(f"K1 launched {k1_launches} times for {N_FRAMES} frames")
-    if len(rgbs) != N_FRAMES or rgbs[0].shape != (H, W, 3):
-        return fail("render_frames returned the wrong frames")
+    check(k1_launches == N_FRAMES,
+          f"K1 launched {k1_launches} times for {N_FRAMES} frames")
+    check(len(rgbs) == N_FRAMES and rgbs[0].shape == (H, W, 3),
+          "render_frames returned the wrong frames")
     covered = [float((d > 0).mean()) for d in depths]
-    if not all(np.isfinite(d).all() for d in depths):
-        return fail("non-finite depth")
-    if min(covered) < 0.05:
-        return fail(f"a frame is nearly blank: depth > 0 on {min(covered):.3f}")
-    print(f"[main] depth > 0 on {min(covered):.4f}..{max(covered):.4f} of "
+    check(all(np.isfinite(d).all() for d in depths), "non-finite depth")
+    check(min(covered) >= 0.05,
+          f"a frame is nearly blank: depth > 0 on {min(covered):.3f}")
+    print(f"[serve] depth > 0 on {min(covered):.4f}..{max(covered):.4f} of "
           f"pixels; mean rgb {float(np.mean(rgbs)):.2f}/255")
 
-    # ---- 4. K1 against its plain version at the main-path shape ----
+    # ---- 4. K1 against its plain version at the serving shape ----
     out, err, nc_eq, mean_rgb, finite = compare(app.params, cams[0],
                                                 "1M llff frame 0")
-    if not finite or mean_rgb > 1e-5 or err["render"] > 2e-2 or nc_eq < 0.999:
-        return fail("K1 disagrees with the plain version on the 1M frame")
+    check(finite and mean_rgb <= 1e-5 and err["render"] <= 2e-2
+          and nc_eq >= 0.999, "K1 disagrees with the plain version on the 1M frame")
     acc_share = float((out["acc"] > 0.5).float().mean())
     print(f"[compare] 1M frame 0: acc > 0.5 on {acc_share:.4f} of pixels")
-    if acc_share < 0.05:
-        return fail("1M frame 0 is nearly blank")
+    check(acc_share >= 0.05, "1M frame 0 is nearly blank")
     k1_err = err["render"]
 
-    # ---- 5. times per frame at the main-path shape ----
+    # ---- 5. serving times per frame ----
     params, cam = app.params, cams[0]
     grid_x, _ = num_tiles_for(H, W, 16)
-    pair_cap = default_pair_capacity(params.capacity)   # chunk-aligned at 128
+    pair_cap = default_pair_capacity(params.capacity)   # 1024-aligned
     with torch.no_grad():
         proc = preprocess_gaussians(params, cam, 3)
         bins = build_tile_bins(proc, H, W, 16, pair_cap)
         phases = {
             "preprocess": lambda: preprocess_gaussians(params, cam, 3),
             "binning": lambda: build_tile_bins(proc, H, W, 16, pair_cap),
-            "k1": lambda: cuda_blend.blend_tiles(
+            "k1": lambda: cuda_blend.blend_fwd(
                 bins.attrs, bins.tile_start, bins.tile_end, grid_x),
             "frame": lambda: render_tiled(params, cam, bg, chunk=128,
                                           backend="cuda"),
@@ -300,7 +343,7 @@ def main() -> int:
         plain_ms, _ = timed(plain, 2)
         rounds.append({k: timed(f, 20) for k, f in phases.items()})
         for r, times in enumerate(rounds):
-            print(f"[time] round {r}: device ms / host wall ms per call: "
+            print(f"[time] serve round {r}: device ms / host wall ms per call: "
                   + "; ".join(f"{k} {d:.4f} / {w:.4f}"
                               for k, (d, w) in times.items()))
         print(f"[time] plain blend: device {plain_ms:.4f} ms per call")
@@ -315,31 +358,396 @@ def main() -> int:
     k1_bytes = num_pairs * BYTES_PER_PAIR + nt * (2 * 4 + 256 * 8 * 4)
     k1_flops = (n_eval * FLOPS_EVAL + n_exp * FLOPS_EXP_PATH
                 + n_commit * FLOPS_COMMIT)
-    bound = {
-        "bytes": k1_bytes / HBM_BYTES_PER_S * 1e3,
-        "operations": max(k1_flops / FP32_FLOPS_PER_S,
-                          n_exp / SFU_OPS_PER_S) * 1e3,
-    }
-    bound_by = max(bound, key=bound.get)
+    bound, bound_by, both = bound_of(k1_bytes, k1_flops, n_exp)
     print(f"[time] K1 work: pairs {num_pairs} evaluated products {n_eval} "
           f"exps {n_exp} commits {n_commit} flops {k1_flops} bytes {k1_bytes}")
-    print(f"[time] K1 bound: bytes {bound['bytes']:.5f} ms, operations "
-          f"{bound['operations']:.5f} ms -> {bound_by}")
-    print(f"[time] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[time] K1 bound: bytes {both['bytes']:.5f} ms, operations "
+          f"{both['operations']:.5f} ms -> {bound_by}")
+    print(f"[time] serve peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    record = {
+        "serve_launches": k1_launches, "max_abs_err": k1_err,
+        "ms": min(r["k1"][0] for r in rounds), "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+    return app, cams, record
 
-    print(json.dumps({"kernels": [{
-        "name": "blend_fwd",
-        "route": "cuda",
-        "source": "luciddreamer_tpu_torch/csrc/blend_fwd.cu",
-        "replaces": "luciddreamer_tpu/render/pallas_blend.py:152",
-        "launches": k1_launches,
-        "max_abs_err": k1_err,
-        "ms": min(r["k1"][0] for r in rounds),
-        "plain_ms": plain_ms,
-        "bound_ms": bound[bound_by],
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
+
+# ------------------------------------------------------- K2 / K3 / gradient
+
+def frame_inputs(params, cam, seed):
+    """Sorted pairs, K1's state and random cotangents at one frame."""
+    from luciddreamer_tpu_torch.render import binning, cuda_blend
+    from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians
+    from luciddreamer_tpu_torch.render.tiled import default_pair_capacity
+
+    with torch.no_grad():
+        proc = preprocess_gaussians(params, cam, 3)
+        pair_cap = default_pair_capacity(params.capacity)
+        pairs = binning.sort_pairs(proc, H, W, 16, pair_cap)
+        attrs = binning.gaussian_attr_table(proc)[pairs.src]
+        state, _ = cuda_blend.blend_fwd(attrs, pairs.tile_start,
+                                        pairs.tile_end, W // 16)
+        g = torch.Generator(device=attrs.device).manual_seed(seed)
+        d_state = torch.randn(state.shape, generator=g, device=attrs.device)
+        d_state[:, 6] = 0.0
+    return pairs, attrs, state, d_state
+
+
+def check_k2(params, cam, tag, row_share):
+    """K2 against the plain K2; returns (pairs, attrs, state, d_state, K2's
+    output, max abs error)."""
+    from luciddreamer_tpu_torch.render import cuda_blend, torch_blend
+
+    pairs, attrs, state, d_state = frame_inputs(params, cam, seed=11)
+    args = (attrs, pairs.tile_start, pairs.tile_end, state, d_state)
+    out = cuda_blend.blend_bwd(*args, W // 16)
+    ref = torch_blend.blend_tiles_bwd_torch(*args, W // 16, 16, 128)
+    torch.cuda.synchronize()
+    n = int(pairs.total)
+    diff = (out[:n, :10] - ref[:n, :10]).abs()
+    scale = ref[:n, :10].abs().amax(dim=0).clamp_min(1e-30)
+    rows_bad = int((~((diff / scale) <= 5e-4).all(dim=1)).sum())
+    rows_ok = 1.0 - rows_bad / max(n, 1)
+    rel_l2 = (diff.norm(dim=0) / ref[:n, :10].norm(dim=0).clamp_min(1e-30)).tolist()
+    tail_zero = not bool(out[n:].any()) and not bool(out[:, 10:].any())
+    max_err = float(diff.max())
+    print(f"[k2] {tag}: pairs {n}, rows outside 5e-4 of the channel max "
+          f"{rows_bad} ({rows_ok:.6f} within); max |d| {max_err:.3e}; "
+          "max |d|/channel max "
+          + " ".join(f"{v:.2e}" for v in (diff / scale).amax(dim=0).tolist())
+          + "; relative L2 " + " ".join(f"{v:.2e}" for v in rel_l2)
+          + f"; rows past num_pairs and columns 10-15 zero: {tail_zero}")
+    check(bool(torch.isfinite(out).all()), f"K2 non-finite at {tag}")
+    check(tail_zero, f"K2 left non-zero rows past num_pairs at {tag}")
+    check(rows_ok >= row_share,
+          f"K2 disagrees with the plain version at {tag}: {rows_ok:.6f} of rows")
+    del ref
+    return pairs, attrs, state, d_state, out, max_err
+
+
+def whole_gradient(params, cam, tag):
+    """backend="cuda" against backend="torch" on every parameter group."""
+    from luciddreamer_tpu_torch.render.tiled import render_tiled
+
+    w = torch.randn((3, H, W), generator=torch.Generator(device="cuda")
+                    .manual_seed(5), device="cuda")
+
+    def grads(backend):
+        for t in params.parameters():
+            t.grad = None
+        out = render_tiled(params, cam, torch.zeros(3, device="cuda"),
+                           chunk=128, backend=backend)
+        loss = (torch.sum(out["render"] * w) + 0.01 * torch.sum(out["depth"])
+                + 0.3 * torch.sum(out["final_T"] ** 2)
+                + 0.1 * torch.sum(out["acc"]))
+        loss.backward()
+        return {k: t.grad.clone() for k, t in params.named_parameters()}
+
+    gk, gp = grads("cuda"), grads("torch")
+    for t in params.parameters():
+        t.grad = None
+    errs = {k: float((gk[k] - gp[k]).abs().max() / gp[k].abs().max().clamp_min(1e-30))
+            for k in gk}
+    print(f"[grad] {tag}: max |d grad| / group max, cuda vs torch: "
+          + " ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    check(all(np.isfinite(list(errs.values()))), f"non-finite gradient at {tag}")
+    check(max(errs.values()) <= 5e-4,
+          f"the CUDA gradient disagrees with the plain one at {tag}")
+
+
+def check_vjp(attrs, pairs, d_attrs):
+    """K3 bit-equal to its plain version; the gather VJP against float64."""
+    from luciddreamer_tpu_torch.render import binning, cuda_repack
+
+    cols = cuda_repack.repack_cols(d_attrs, pairs.order, pairs.total)
+    plain = cuda_repack.repack_cols_torch(d_attrs, pairs.order, pairs.total)
+    torch.cuda.synchronize()
+    equal = torch.equal(cols, plain)
+    k3_err = float((cols - plain).abs().max())
+    print(f"[k3] 1M frame 0: K3 bit-equal to its plain version: {equal}")
+    check(equal, "K3 disagrees with its plain version")
+    del plain
+    n = int(pairs.total)
+    rows = pairs.offsets_p1.shape[0]
+    exact = torch.zeros((rows, 16), dtype=torch.float64, device="cuda")
+    exact.index_add_(0, pairs.src[:n], d_attrs[:n].double())
+    got = binning.gather_vjp(d_attrs, pairs.order, pairs.offsets_p1, pairs.total)
+    cs = torch.cat([cols.new_zeros((10, 1)), torch.cumsum(cols, dim=1)], dim=1)
+    csb = cs[:, pairs.offsets_p1.clamp(max=cols.shape[1])]
+    fp32 = (csb[:, 1:] - csb[:, :-1]).t()
+    scale = exact[:-1, :10].abs().amax(dim=0)
+    e64 = ((got[:-1, :10].double() - exact[:-1, :10]).abs().amax(dim=0) / scale)
+    e32 = ((fp32.double() - exact[:-1, :10]).abs().amax(dim=0) / scale)
+    print("[vjp] 1M frame 0: gather VJP max |d| / channel max against a "
+          "float64 index_add: float64 prefix sum (the port) "
+          + " ".join(f"{v:.2e}" for v in e64.tolist())
+          + "; fp32 prefix sum " + " ".join(f"{v:.2e}" for v in e32.tolist()))
+    check(float(e64.max()) <= 1e-5, "the gather VJP disagrees with float64")
+    return k3_err
+
+
+# ---------------------------------------------------------------- training
+
+def training(app, cams, dev):
+    """Phase 7 (the training main path) and phase 8 (its times)."""
+    from luciddreamer_tpu_torch.config import GSConfig
+    from luciddreamer_tpu_torch.core.types import GaussianParams
+    from luciddreamer_tpu_torch.model import gaussians as gs
+    from luciddreamer_tpu_torch.model.optim import (
+        adam_init, adam_update, learning_rates)
+    from luciddreamer_tpu_torch.render import (
+        binning, cuda_blend, cuda_repack, torch_blend)
+    from luciddreamer_tpu_torch.render.tiled import render_tiled
+    from luciddreamer_tpu_torch.train.loop import Trainer
+
+    # ---- 7. set-up ----
+    scene = make_scene(P_FULL, seed=42, device=dev)
+    scene, _, _ = gs.grow_capacity(scene, adam_init(scene.param_dict()),
+                                   gs.DensifyStats.zero(P_FULL, dev), CAPACITY)
+    views = []
+    with torch.no_grad():
+        for cam in cams[:TRAIN_VIEWS]:
+            out = render_tiled(scene, cam, torch.zeros(3, device=dev))
+            check(not bool(out["overflow"]), "target render overflowed")
+            views.append((cam, out["render"]))
+    rng = np.random.default_rng(43)
+    p = scene.param_dict()
+    alive = scene.alive
+    noise = lambda shape, s: torch.as_tensor(
+        rng.normal(size=shape).astype(np.float32) * s, device=dev) * alive.view(
+            (-1,) + (1,) * (len(shape) - 1))
+    p["f_dc"] = p["f_dc"] + noise(p["f_dc"].shape, 0.3)
+    p["opacity"] = p["opacity"] + noise(p["opacity"].shape, 1.0)
+    start = GaussianParams.from_param_dict(p, alive)
+    cfg = GSConfig(iterations=TRAIN_ITERS, densify_from_iter=10,
+                   densification_interval=10)
+    tr = Trainer(start, cfg, cameras_extent=2.0, device="cuda")
+    alive_before = int(tr.state.params.num_alive)
+    step_calls = []
+    inner_step = tr._step
+
+    def counted_step(*a):
+        step_calls.append(1)
+        return inner_step(*a)
+
+    tr._step = counted_step
+    losses = []
+    torch.cuda.synchronize()
+    cuda_blend.blend_fwd.launches = 0
+    cuda_blend.blend_bwd.launches = 0
+    cuda_repack.repack_cols.launches = 0
+    t0 = time.time()
+    state = tr.run(views, callback=lambda it, st, loss: losses.append(loss))
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    launches = {"blend_fwd": cuda_blend.blend_fwd.launches,
+                "blend_bwd": cuda_blend.blend_bwd.launches,
+                "repack_cols": cuda_repack.repack_cols.launches}
+    tr._step = inner_step
+    steps = len(step_calls)
+    losses = [float(v) for v in losses]
+    alive_after = int(state.params.num_alive)
+    print(f"[train] {TRAIN_ITERS} iterations ({steps} steps run) in "
+          f"{train_s:.2f} s host time; launches {launches}; pair_cap "
+          f"{tr.pair_cap}; overflow seen {tr.last_overflow}")
+    print(f"[train] loss first 5 {np.round(losses[:5], 5).tolist()} last 5 "
+          f"{np.round(losses[-5:], 5).tolist()}; alive {alive_before} -> "
+          f"{alive_after} of {CAPACITY}")
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]), "the loss did not fall")
+    check(alive_after != alive_before, "densify did not change the population")
+    check(all(v == steps for v in launches.values()),
+          f"kernel launches {launches} differ from the {steps} steps run")
+    check(int(state.step) == TRAIN_ITERS and int(state.adam.count) == TRAIN_ITERS,
+          "an overflowed step was committed or a step went missing")
+
+    # ---- create_from_pcd at the app's largest cloud ----
+    g = np.random.default_rng(44)
+    pts = torch.as_tensor(g.uniform([-2, -2, 2], [2, 2, 6], (PCD_POINTS, 3))
+                          .astype(np.float32), device=dev)
+    cols = torch.as_tensor(g.uniform(size=(PCD_POINTS, 3)).astype(np.float32),
+                           device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pcd = gs.create_from_pcd(pts, cols, capacity=CAPACITY)
+    torch.cuda.synchronize()
+    pcd_s = time.time() - t0
+    # the scale is log sqrt(mean 3-NN squared distance): check that mean
+    rows = torch.as_tensor(g.choice(PCD_POINTS, 1000, replace=False), device=dev)
+    got = torch.exp(2.0 * pcd.scaling[rows, 0].double())
+    p64 = pts.double()
+    r64 = p64[rows]
+    d2 = ((r64 * r64).sum(1)[:, None] + (p64 * p64).sum(1)[None, :]
+          - 2.0 * r64 @ p64.T)                    # float64: negligible cancellation
+    d2[torch.arange(1000, device=dev), rows] = float("inf")
+    ref = torch.topk(d2, 3, dim=1, largest=False).values.mean(dim=1).clamp_min(1e-7)
+    rel = float(((got.detach() - ref).abs() / ref).max())
+    print(f"[pcd] create_from_pcd of {PCD_POINTS} points into capacity "
+          f"{CAPACITY}: {pcd_s:.3f} s host time; knn on 1000 rows against "
+          f"float64: max relative error {rel:.3e}")
+    check(int(pcd.num_alive) == PCD_POINTS and bool(torch.isfinite(pcd.scaling).all()),
+          "create_from_pcd gave a wrong scene")
+    check(rel <= 2e-2, "knn disagrees with the float64 brute force")
+    del pcd, d2, p64
+
+    # ---- 8. times at the main-path shape ----
+    cam, img = views[0]
+    step = lambda: tr._step(state, cam, img, None)
+
+    def forward():
+        rp = GaussianParams.from_param_dict(state.params.param_dict(), alive_now)
+        off = torch.zeros((rp.capacity, 2), device=dev, requires_grad=True)
+        loss, _ = tr._render_loss(rp, off, cam, img, None)
+        return loss, [rp.xyz, rp.features_dc, rp.features_rest, rp.scaling,
+                      rp.rotation, rp.opacity, off]
+
+    alive_now = state.params.alive
+    loss, leaves = forward()
+    backward = lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
+    pairs, attrs, kstate, d_state = frame_inputs(state.params, cam, seed=12)
+    d_attrs = cuda_blend.blend_bwd(attrs, pairs.tile_start, pairs.tile_end,
+                                   kstate, d_state, W // 16)
+    lib_out = torch.empty((10, attrs.shape[0]), device=dev)
+    _, _, grads, _ = tr._loss_and_grads(state, cam, img, None)
+    pdict = state.params.param_dict()
+    lrs = learning_rates(cfg, tr.extent, state.step)
+    phases = {
+        "step": (step, 5),
+        "forward": (forward, 5),
+        "backward": (backward, 5),
+        "k2": (lambda: cuda_blend.blend_bwd(
+            attrs, pairs.tile_start, pairs.tile_end, kstate, d_state, W // 16), 20),
+        "binning_vjp": (lambda: binning.gather_vjp(
+            d_attrs, pairs.order, pairs.offsets_p1, pairs.total), 20),
+        "k3": (lambda: cuda_repack.repack_cols(d_attrs, pairs.order,
+                                               pairs.total), 20),
+        "k3_library": (lambda: lib_out.index_copy_(
+            1, pairs.order, d_attrs[:, :10].t()), 20),
+        "adam": (lambda: adam_update(pdict, grads, state.adam, lrs), 20),
+        "densify": (lambda: gs.densify_and_prune(
+            state.params, state.adam, state.stats, cfg.densify_grad_threshold,
+            0.005, tr.extent, None, cfg.percent_dense, generator=tr.generator), 5),
+    }
+    rounds = []
+    for r in range(2):
+        rounds.append({k: timed(f, n) for k, (f, n) in phases.items()})
+        print(f"[time] train round {r}: device ms / host wall ms per call: "
+              + "; ".join(f"{k} {d:.4f} / {w:.4f}"
+                          for k, (d, w) in rounds[-1].items()))
+        if r == 0:
+            k2_plain_ms, _ = timed(lambda: torch_blend.blend_tiles_bwd_torch(
+                attrs, pairs.tile_start, pairs.tile_end, kstate, d_state,
+                W // 16, 16, 128), 1)
+            k3_plain_ms, _ = timed(lambda: cuda_repack.repack_cols_torch(
+                d_attrs, pairs.order, pairs.total), 5)
+    print(f"[time] plain K2 {k2_plain_ms:.4f} ms, plain K3 {k3_plain_ms:.4f} ms "
+          "(device, per call)")
+    del loss, leaves
+    dev_ms, wall_ms, top = device_profile(step, 3, top=12)
+    print(f"[profile] training step: device kernels {dev_ms:.4f} ms, host "
+          f"wall {wall_ms:.4f} ms per step (profiler on), device busy share "
+          f"{dev_ms / wall_ms:.4f}; by kernel:")
+    for name, t in top:
+        print(f"[profile]   {t:9.4f} ms  {name[:100]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[time] training step peak device memory {peak / 2**30:.2f} GiB "
+          f"({(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB "
+          "held before it)")
+
+    # ---- bounds of K2 and K3 at this frame ----
+    with torch.no_grad():
+        bins = binning.TileBins(attrs, pairs.tile_start, pairs.tile_end,
+                                pairs.total, pairs.total > attrs.shape[0])
+        n_eval, n_exp, n_commit = k1_work(bins, W // 16)
+    n = int(pairs.total)
+    nt = pairs.tile_start.shape[0]
+    cap = attrs.shape[0]
+    k2_bytes = (n * (K2_READ_PER_PAIR + K2_WRITE_PER_PAIR)
+                + nt * (2 * 4 + 256 * K2_PIXEL_BYTES))
+    k2_flops = (n_eval * FLOPS_EVAL + n_exp * FLOPS_EXP_PATH
+                + n_commit * FLOPS_K2_COMMIT)
+    k2_bound, k2_by, k2_both = bound_of(k2_bytes, k2_flops, n_exp + n_commit)
+    k3_bytes = n * K3_BYTES_READ + cap * (K3_BYTES_ORDER + K3_BYTES_WRITE) + 8
+    k3_bound, k3_by, _ = bound_of(k3_bytes, 0, 0)
+    print(f"[time] K2 work: pairs {n} of {cap} slots, evaluated products "
+          f"{n_eval}, exps {n_exp}, commits {n_commit}, flops {k2_flops}, "
+          f"bytes {k2_bytes}; bound: bytes {k2_both['bytes']:.5f} ms, "
+          f"operations {k2_both['operations']:.5f} ms -> {k2_by}")
+    print(f"[time] K3 work: bytes {k3_bytes}; bound {k3_bound:.5f} ms -> {k3_by}")
+    best = lambda k: min(r[k][0] for r in rounds)
+    return {
+        "launches": launches,
+        "blend_bwd": {"ms": best("k2"), "plain_ms": k2_plain_ms,
+                      "bound_ms": k2_bound, "bound_by": k2_by},
+        "repack_cols": {"ms": best("k3"), "plain_ms": k3_plain_ms,
+                        "bound_ms": k3_bound, "bound_by": k3_by,
+                        "library_ms": best("k3_library")},
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: FAILED: no CUDA device", file=sys.stderr)
+        return 1
+    # the plain versions run on the card too: full fp32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {torch.cuda.get_device_name(0)} | {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    t_start = time.time()
+    try:
+        print_build_report()
+        bg = torch.zeros(3, device=dev)
+        app, cams, k1 = serving(bg, dev)
+
+        # ---- 6. K2, K3 and the whole gradient ----
+        small = make_scene(P_SMALL, seed=7, device=dev)
+        check_k2(small, cams[0], "20k llff frame 0", 1.0)
+        whole_gradient(small, cams[0], "20k llff frame 0")
+        del small
+        pairs, attrs, _, _, d_attrs, k2_err = check_k2(
+            app.params, cams[0], "1M llff frame 0", 0.999)
+        k3_err = check_vjp(attrs, pairs, d_attrs)
+        del pairs, attrs, d_attrs
+        whole_gradient(app.params, cams[0], "1M llff frame 0")
+
+        train = training(app, cams, dev)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"[done] all phases in {time.time() - t_start:.1f} s")
+
+    source = "luciddreamer_tpu_torch/csrc/{}.cu".format
+    rows = [
+        {"name": "blend_fwd", "route": "cuda", "source": source("blend_fwd"),
+         "replaces": "luciddreamer_tpu/render/pallas_blend.py:152",
+         "launches": train["launches"]["blend_fwd"],
+         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": None},
+        {"name": "blend_bwd", "route": "cuda", "source": source("blend_bwd"),
+         "replaces": "luciddreamer_tpu/render/pallas_blend.py:215",
+         "launches": train["launches"]["blend_bwd"], "max_abs_err": k2_err,
+         **train["blend_bwd"], "library_ms": None},
+        {"name": "repack_cols", "route": "cuda", "source": source("repack_cols"),
+         "replaces": "luciddreamer_tpu/render/binning.py:234",
+         "launches": train["launches"]["repack_cols"], "max_abs_err": k3_err,
+         **train["repack_cols"]},
+    ]
+    print(f"[serve] K1 launches on the serving path: {k1['serve_launches']}")
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
-"""Configuration read by the render path (mirrors ``luciddreamer_tpu.config``).
+"""Configuration read by the render and training paths (mirrors
+``luciddreamer_tpu.config``, with its defaults).
 
-Only the fields this package reads are carried; the training and dreaming
-fields come with the slices that use them.
+The dreaming fields come with the slice that uses them.
 """
 from __future__ import annotations
 
@@ -11,10 +11,31 @@ import math
 
 @dataclasses.dataclass
 class GSConfig:
-    """The render-time subset of the 3DGS hyperparameters."""
+    """3DGS optimization hyperparameters."""
 
     sh_degree: int = 3
     white_background: bool = False
+    use_depth: bool = False
+    iterations: int = 2990
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 2990
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002
+    lambda_depth: float = 0.0        # weight of the masked depth L1
+    convert_SHs_python: bool = False
+    compute_cov3D_python: bool = False
+    debug: bool = False
 
 
 @dataclasses.dataclass

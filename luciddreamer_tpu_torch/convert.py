@@ -1,5 +1,6 @@
-"""Carry state across from the JAX package: its ``GaussianParams`` and
-``Camera`` fields, given as numpy arrays, become the port's objects.
+"""Carry state across from the JAX package: its ``GaussianParams``,
+``Camera`` and ``TrainState`` fields, given as numpy arrays, become the
+port's objects.
 
 No JAX import: callers pass ``np.asarray`` of each field.
 """
@@ -10,6 +11,7 @@ import torch
 
 from luciddreamer_tpu_torch.core.types import Camera, GaussianParams
 from luciddreamer_tpu_torch.device import resolve_device
+from luciddreamer_tpu_torch.train.checkpoint import state_from_dict
 
 GAUSSIAN_FIELDS = ("xyz", "features_dc", "features_rest", "scaling",
                    "rotation", "opacity", "alive")
@@ -34,3 +36,18 @@ def camera(arrays: dict, height: int, width: int, znear: float = 0.01,
     f32 = lambda k: torch.as_tensor(np.array(arrays[k], np.float32), device=dev)
     return Camera(**{k: f32(k) for k in CAMERA_ARRAYS}, height=int(height),
                   width=int(width), znear=znear, zfar=zfar)
+
+
+def train_state(tree: dict, device=None):
+    """A JAX ``TrainState`` as the nested dict of numpy arrays that
+    ``luciddreamer_tpu/train/checkpoint.py::_state_to_pytree`` builds
+    (params with alive, adam count/mu/nu, stats, step) -> the port's
+    ``TrainState``."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return torch.as_tensor(np.array(x), device=dev)
+
+    return state_from_dict(conv(tree))

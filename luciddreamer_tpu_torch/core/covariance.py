@@ -9,6 +9,20 @@ from __future__ import annotations
 import torch
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z), already normalized -> (..., 3, 3) rotation."""
+    r, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = torch.stack(
+        [
+            1.0 - 2.0 * (y * y + z * z), 2.0 * (x * y - r * z), 2.0 * (x * z + r * y),
+            2.0 * (x * y + r * z), 1.0 - 2.0 * (x * x + z * z), 2.0 * (y * z - r * x),
+            2.0 * (x * z - r * y), 2.0 * (y * z + r * x), 1.0 - 2.0 * (x * x + y * y),
+        ],
+        dim=-1,
+    )
+    return R.reshape(q.shape[:-1] + (3, 3))
+
+
 def build_cov3d(scale: torch.Tensor, quat: torch.Tensor, scale_modifier: float = 1.0) -> torch.Tensor:
     """World-space covariance Sigma = R S^2 R^T, packed symmetric.
 

@@ -65,6 +65,23 @@ class GaussianParams(nn.Module):
         """(P, (deg+1)^2, 3) concatenated SH coefficients."""
         return torch.cat([self.features_dc, self.features_rest], dim=1)
 
+    def param_dict(self) -> dict:
+        """The trainable tensors, detached, keyed by the JAX package's
+        group names (``luciddreamer_tpu/core/types.py::param_pytree``)."""
+        return {
+            "xyz": self.xyz.detach(),
+            "f_dc": self.features_dc.detach(),
+            "f_rest": self.features_rest.detach(),
+            "scaling": self.scaling.detach(),
+            "rotation": self.rotation.detach(),
+            "opacity": self.opacity.detach(),
+        }
+
+    @classmethod
+    def from_param_dict(cls, p: dict, alive: torch.Tensor) -> "GaussianParams":
+        return cls(p["xyz"], p["f_dc"], p["f_rest"], p["scaling"],
+                   p["rotation"], p["opacity"], alive)
+
 
 @dataclasses.dataclass
 class Camera:

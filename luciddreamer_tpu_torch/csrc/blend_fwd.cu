@@ -138,6 +138,6 @@ extern "C" int blend_fwd(const float* attrs, const int* tile_start,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" const char* blend_fwd_error_string(int code) {
+extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

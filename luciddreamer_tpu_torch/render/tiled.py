@@ -1,12 +1,18 @@
 """Tiled renderer: preprocess -> binning -> tile blend -> image.
 
-Backends:
-  * ``cuda``  - the hand-written forward blend kernel (render.cuda_blend);
-                for tensors on the CPU it runs the plain version;
-  * ``torch`` - the plain PyTorch blend (render.torch_blend) on any device;
-                differentiable.
+Differentiable end to end.  Backends:
+  * ``cuda``  - the hand-written blend kernels K1 (forward) and K2
+                (backward) of render.cuda_blend; for tensors on the CPU
+                the same autograd Function runs their plain versions;
+  * ``torch`` - the plain PyTorch forward and backward blend
+                (render.torch_blend) on any device, through the same
+                Function.
+The binning gather's VJP (render.binning) launches K3 on CUDA tensors
+under either backend.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -46,17 +52,20 @@ def render_tiled(
     grid_x, grid_y = num_tiles_for(H, W, tile_size)
     if pair_cap is None:
         pair_cap = default_pair_capacity(params.capacity)
-    pair_cap = ((pair_cap + chunk - 1) // chunk) * chunk
+    # the JAX package's alignment (luciddreamer_tpu/render/tiled.py:60-68),
+    # so that both hold the same capacity and overflow on the same scenes:
+    # lcm(chunk, 1024) from 1024 up, chunk below so tiny caps still overflow
+    align = math.lcm(chunk, 1024) if pair_cap >= 1024 else chunk
+    pair_cap = ((pair_cap + align - 1) // align) * align
 
     proc = preprocess_gaussians(
         params, camera, active_sh_degree, tile_size, scale_modifier,
         mean2d_offset=mean2d_offset,
     )
     bins = build_tile_bins(proc, H, W, tile_size, pair_cap)
-    blend = (cuda_blend.blend_tiles if backend == "cuda"
-             else torch_blend.blend_tiles_torch)
-    carry = blend(bins.attrs, bins.tile_start, bins.tile_end, grid_x,
-                  tile_size, chunk)
+    carry = cuda_blend.blend_tiles(bins.attrs, bins.tile_start, bins.tile_end,
+                                   grid_x, tile_size, chunk,
+                                   plain=backend == "torch")
     rgb, depth = blend_math.finalize(carry, bg)
 
     def to_img(x):

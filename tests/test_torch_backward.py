@@ -1,0 +1,255 @@
+"""Port parity, backward: the plain versions of K2 (backward blend) and K3
+(cotangent column repack), the binning gather's VJP, ``render_tiled``
+gradients and ``render_dense`` against the JAX package (CPU).
+
+JAX runs as its own tests run it here: K2 through ``_bwd_call`` in
+interpret mode, K3 through ``_repack_cols`` (interpret mode off-TPU), the
+tiled render with ``backend="pallas"`` and ``"xla"``.  Tolerances: K2 rows
+atol 1e-5 scaled by each channel's max; the gather VJP atol 1e-5 scaled by
+each field's max (the JAX prefix sum runs in fp32); render gradients atol
+5e-4 scaled by the group's max, as tests/test_pallas_blend.py; K3 exact.
+"""
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from luciddreamer_tpu.core.types import GaussianParams as JParams
+from luciddreamer_tpu.render.binning import _repack_cols
+from luciddreamer_tpu.render.binning import build_tile_bins as jbins
+from luciddreamer_tpu.render.dense import render_dense as jdense
+from luciddreamer_tpu.render.pallas_blend import _bwd_call, _fwd_call
+from luciddreamer_tpu.render.preprocess import preprocess_gaussians as jpre
+from luciddreamer_tpu.render.tiled import render_tiled as jrender
+from luciddreamer_tpu_torch.render import (
+    binning, cuda_blend, cuda_repack, kernels, torch_blend,
+)
+from luciddreamer_tpu_torch.render.dense import render_dense as tdense
+from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians as tpre
+from luciddreamer_tpu_torch.render.tiled import render_tiled as trender
+from tests.helpers import make_random_gaussians, make_test_camera
+from tests.port_helpers import (  # noqa: F401  (one_torch_thread: a fixture)
+    assert_scaled_close, jax_tile_ranges, np_, one_torch_thread, port_camera,
+    port_params,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+TILE = 16
+GROUPS = ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity")
+PORT_NAMES = dict(xyz="xyz", f_dc="features_dc", f_rest="features_rest",
+                  scaling="scaling", rotation="rotation", opacity="opacity")
+
+
+def _wall(jp, P):
+    """Dense opaque wall: the done latch decides most pixels."""
+    return jp.replace(opacity=jnp.full((P, 1), 8.0))
+
+
+def _scene(rng, case):
+    if case == "wall":
+        jp = make_random_gaussians(120, rng, scale_range=(-2.5, -1.0), spread=0.3)
+        return _wall(jp, 120), 0, 16
+    return make_random_gaussians(60, rng, scale_range=(-3.0, -1.0)), 2, 32
+
+
+@pytest.mark.parametrize("case", ["blob", "wall"])
+def test_plain_k2_matches_jax_bwd_call(rng, case):
+    jp, _, chunk = _scene(rng, case)
+    W = H = 32
+    gx, gy = W // TILE, H // TILE
+    nt = gx * gy
+    jcam = make_test_camera(W, H)
+    jb = jax.jit(lambda p: jbins(jpre(p, jcam, 3), H, W, TILE, 4096, chunk))(jp)
+    segs = (jb.seg_tile, jb.seg_k0, jb.seg_lo, jb.seg_hi, jb.seg_chunk)
+    fwd = jax.jit(lambda a, *s: _fwd_call(a, *s, gx, gy, TILE, chunk,
+                                          interpret=True))
+    bwd = jax.jit(lambda a, st, ds, *s: _bwd_call(a, *s, st, ds, gx, gy, TILE,
+                                                  chunk, interpret=True))
+    state = fwd(jb.attrs, *segs)
+    dstate = rng.normal(size=state.shape).astype(np.float32)
+    ref = np.asarray(bwd(jb.attrs, state, jnp.asarray(dstate), *segs))
+
+    start, end = jax_tile_ranges(jb, nt, chunk)
+    t_state = torch.as_tensor(np.array(state)[:nt, :7])
+    t_dstate = torch.as_tensor(dstate[:nt, :7]).contiguous()
+    t_dstate[:, 6] = 0.0
+    out = torch_blend.blend_tiles_bwd_torch(
+        torch.as_tensor(np.array(jb.attrs)),
+        torch.as_tensor(start, dtype=torch.int32),
+        torch.as_tensor(end, dtype=torch.int32),
+        t_state, t_dstate, gx, TILE, chunk,
+    )
+    n = int(jb.num_pairs)
+    assert n > 100
+    for c in range(10):
+        assert_scaled_close(out[:n, c], ref[:n, c], 1e-5, err_msg=f"channel {c}")
+    assert not np_(out)[n:].any() and not np_(out)[:, 10:].any()
+
+
+def test_plain_k2_matches_autograd_of_plain_blend(rng):
+    jp = make_random_gaussians(80, rng, scale_range=(-3.0, -1.0))
+    params, cam = port_params(jp), port_camera(make_test_camera(48, 32))
+    with torch.no_grad():
+        bins = binning.build_tile_bins(tpre(params, cam, 3), 32, 48, TILE, 4096)
+    attrs = bins.attrs.clone().requires_grad_()
+    c = torch_blend.blend_tiles_torch(attrs, bins.tile_start, bins.tile_end,
+                                      3, TILE, 16)
+    g = torch.as_tensor(rng.normal(size=(6,) + tuple(c.T.shape)),
+                        dtype=torch.float32)
+    fields = [c.T, c.rgb[:, 0], c.rgb[:, 1], c.rgb[:, 2], c.depth, c.acc]
+    sum(torch.sum(f * gi) for f, gi in zip(fields, g)).backward()
+    state, _ = cuda_blend.blend_fwd_torch(bins.attrs, bins.tile_start,
+                                          bins.tile_end, 3, TILE, 16)
+    d_state = torch.zeros_like(state)
+    d_state[:, :6] = g.transpose(0, 1)
+    out = torch_blend.blend_tiles_bwd_torch(
+        bins.attrs, bins.tile_start, bins.tile_end, state, d_state, 3, TILE, 16)
+    n = int(bins.num_pairs)
+    for ch in range(10):
+        assert_scaled_close(out[:n, ch], attrs.grad[:n, ch], 1e-5,
+                            err_msg=f"channel {ch}")
+
+
+def _render_loss_weights(rng, W, H):
+    wr = rng.normal(size=(3, H, W)).astype(np.float32)
+    wd = rng.normal(size=(H, W)).astype(np.float32)
+    return wr, wd
+
+
+def _loss(out, wr, wd, lib):
+    """Every differentiable output, as tests/test_pallas_blend.py."""
+    return (lib.sum(out["render"] * wr) + lib.sum(out["depth"] * wd)
+            + 0.3 * lib.sum(out["final_T"] ** 2) + 0.1 * lib.sum(out["acc"]))
+
+
+@pytest.mark.parametrize("jax_backend,case", [
+    ("pallas", "blob"), ("xla", "blob"), ("xla", "wall"),
+])
+def test_render_tiled_gradients_match_jax(rng, jax_backend, case):
+    jp, deg, chunk = _scene(rng, case)
+    W = H = 32
+    jcam = make_test_camera(W, H)
+    bg = np.array([0.2, 0.4, 0.6], np.float32)
+    wr, wd = _render_loss_weights(rng, W, H)
+
+    def jloss(pdict, offset):
+        p = JParams.from_param_pytree(pdict, jp.alive)
+        out = jrender(p, jcam, jnp.asarray(bg), active_sh_degree=deg,
+                      chunk=chunk, backend=jax_backend, mean2d_offset=offset)
+        return _loss(out, wr, wd, jnp)
+
+    offset = jnp.zeros((jp.capacity, 2), jnp.float32)
+    jg, jg2d = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jp.param_pytree(), offset)
+
+    params = port_params(jp)
+    t_off = torch.zeros((params.capacity, 2), requires_grad=True)
+    out = trender(params, port_camera(jcam), torch.as_tensor(bg),
+                  active_sh_degree=deg, chunk=chunk, backend="cuda",
+                  mean2d_offset=t_off)
+    assert not bool(out["overflow"])
+    _loss(out, torch.as_tensor(wr), torch.as_tensor(wd), torch).backward()
+    for name in GROUPS:
+        assert_scaled_close(getattr(params, PORT_NAMES[name]).grad, jg[name],
+                            5e-4, err_msg=name)
+    assert_scaled_close(t_off.grad, jg2d, 5e-4, err_msg="mean2d_offset")
+
+
+FIELDS = ("mean2d", "conic", "opacity", "rgb", "depth")
+
+
+@pytest.mark.parametrize("pair_cap", [4096, 64])
+def test_gather_vjp_matches_jax_expand_sort(rng, pair_cap):
+    """The port's gather VJP (plain K3, prefix sum, boundary gather) against
+    the custom VJP of the JAX binning and against autograd of the plain
+    row index; pair_cap 64 overflows."""
+    jp = make_random_gaussians(100, rng, scale_range=(-3.0, -1.0))
+    W, H, chunk = 48, 32, 16
+    jcam = make_test_camera(W, H)
+    jproc = jax.jit(lambda p: jpre(p, jcam, 3))(jp)
+    cap = ((pair_cap + chunk - 1) // chunk) * chunk
+    d = rng.normal(size=(cap, 16)).astype(np.float32)
+
+    def jattrs(f):
+        return jbins(jproc.replace(**f), H, W, TILE, pair_cap, chunk).attrs
+
+    jf = {k: getattr(jproc, k) for k in FIELDS}
+    j_out, vjp = jax.vjp(jax.jit(jattrs), jf)
+    (jgrad,) = vjp(jnp.asarray(d))
+
+    with torch.no_grad():
+        tproc = tpre(port_params(jp), port_camera(jcam), 3)
+    leaves = {k: getattr(tproc, k).clone().requires_grad_() for k in FIELDS}
+    proc = dataclasses.replace(tproc, **leaves)
+    bins = binning.build_tile_bins(proc, H, W, TILE, cap)
+    assert bool(bins.overflow) == (pair_cap == 64)
+    np.testing.assert_allclose(np_(bins.attrs), np_(j_out), rtol=1e-5, atol=1e-5)
+    bins.attrs.backward(torch.as_tensor(d))
+
+    # the plain row index under autograd: atomics-free only on the CPU
+    leaves2 = {k: getattr(tproc, k).clone().requires_grad_() for k in FIELDS}
+    proc2 = dataclasses.replace(tproc, **leaves2)
+    pairs = binning.sort_pairs(proc2, H, W, TILE, cap)
+    live = (torch.arange(cap) < pairs.total)[:, None]
+    plain = binning.gaussian_attr_table(proc2)[pairs.src]
+    torch.sum(plain * torch.as_tensor(d) * live).backward()
+
+    for k in FIELDS:
+        assert_scaled_close(leaves[k].grad, jgrad[k], 1e-5, err_msg=k)
+        assert_scaled_close(leaves[k].grad, leaves2[k].grad, 1e-5, err_msg=k)
+
+
+def test_plain_k3_matches_jax_repack_cols(rng):
+    n = 1500                                    # not a multiple of 1024
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    ref = np.stack([np.asarray(c) for c in _repack_cols(jnp.asarray(x), 10)])
+    tx = torch.as_tensor(x)
+    out = cuda_repack.repack_cols(tx, torch.arange(n), torch.tensor(n))
+    np.testing.assert_array_equal(np_(out), ref)
+
+    # fused with the inverse permutation: the JAX VJP's slot-id re-sort of
+    # the same columns, rows past the live count zeroed
+    live = 1100
+    order = np.concatenate([rng.permutation(live), np.arange(live, n)])
+    j_sorted = jax.lax.sort((jnp.asarray(order, jnp.int32),
+                             *_repack_cols(jnp.asarray(x), 10)), num_keys=1)
+    j_slot = np.stack([np.asarray(c) for c in j_sorted[1:]])
+    j_slot[:, live:] = 0.0
+    out = cuda_repack.repack_cols(tx, torch.as_tensor(order), torch.tensor(live))
+    np.testing.assert_array_equal(np_(out), j_slot)
+
+
+def test_render_dense_matches_jax(rng):
+    jp = make_random_gaussians(40, rng, scale_range=(-3.0, -1.0))
+    W, H = 32, 32
+    jcam = make_test_camera(W, H)
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+    wr, wd = _render_loss_weights(rng, W, H)
+    ref = jax.jit(lambda p: jdense(p, jcam, jnp.asarray(bg)))(jp)
+    jg = jax.jit(jax.grad(lambda pd: _loss(jdense(
+        JParams.from_param_pytree(pd, jp.alive), jcam, jnp.asarray(bg)),
+        wr, wd, jnp)))(jp.param_pytree())
+
+    params = port_params(jp)
+    out = tdense(params, port_camera(jcam), torch.as_tensor(bg))
+    for k, atol in (("render", 1e-5), ("acc", 1e-5), ("final_T", 1e-5),
+                    ("depth", 1e-4)):
+        np.testing.assert_allclose(np_(out[k]), np_(ref[k]), atol=atol, err_msg=k)
+    for k in ("n_contrib", "radii"):
+        np.testing.assert_array_equal(np_(out[k]), np_(ref[k]), err_msg=k)
+    _loss(out, torch.as_tensor(wr), torch.as_tensor(wd), torch).backward()
+    for name in GROUPS:
+        assert_scaled_close(getattr(params, PORT_NAMES[name]).grad, jg[name],
+                            5e-4, err_msg=name)
+
+
+def test_failed_kernel_build_raises(monkeypatch, tmp_path):
+    """No fallback: a compiler that fails makes the build raise."""
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        kernels.build("blend_bwd", "repack_cols")
+    assert not list(tmp_path.glob("*.so"))

@@ -18,26 +18,9 @@ from luciddreamer_tpu_torch.render import blend_math as tbm
 from luciddreamer_tpu_torch.render.binning import build_tile_bins as tbins
 from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians as tpre
 from tests.helpers import make_random_gaussians, make_test_camera
-from tests.port_helpers import np_, port_camera, port_params
+from tests.port_helpers import jax_tile_ranges, np_, port_camera, port_params
 
 TILE = 16
-
-
-def jax_tile_ranges(bins, num_tiles, chunk):
-    """Per-tile [start, end) rows from the JAX segment metadata: a tile's
-    first segment (k0 == 0) starts its range, its segments' ends bound it."""
-    tile = np.asarray(bins.seg_tile)
-    base = np.asarray(bins.seg_chunk) * chunk
-    lo = base + np.asarray(bins.seg_lo)
-    hi = base + np.asarray(bins.seg_hi)
-    k0 = np.asarray(bins.seg_k0)
-    start = np.zeros(num_tiles, np.int64)
-    end = np.zeros(num_tiles, np.int64)
-    for t in range(num_tiles):
-        mine = tile == t
-        start[t] = lo[mine & (k0 == 0)][0]
-        end[t] = hi[mine].max()
-    return start, end
 
 
 def _both(jp, W, H, pair_cap, chunk):

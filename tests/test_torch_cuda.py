@@ -1,0 +1,139 @@
+"""Tests of the port that need an NVIDIA GPU: the CUDA kernels K1, K2 and K3
+on the card against their plain PyTorch versions, the CUDA path with no
+fallback, and a few training steps on the card.
+
+They carry the ``cuda`` marker and skip where there is no CUDA device.
+This file imports neither JAX nor the JAX package, so it also runs where
+JAX is not installed (the repository's conftest.py imports JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from luciddreamer_tpu_torch.config import GSConfig
+from luciddreamer_tpu_torch.core.transforms import make_camera
+from luciddreamer_tpu_torch.core.types import GaussianParams
+from luciddreamer_tpu_torch.model.gaussians import DensifyStats, grow_capacity
+from luciddreamer_tpu_torch.model.optim import adam_init
+from luciddreamer_tpu_torch.render import (
+    binning, cuda_blend, cuda_repack, torch_blend,
+)
+from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians
+from luciddreamer_tpu_torch.render.tiled import render_tiled
+from luciddreamer_tpu_torch.train.loop import Trainer
+
+pytestmark = pytest.mark.cuda
+W = H = 64
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc) to build and run the kernels")
+    return torch.device("cuda")
+
+
+def _scene(P, seed, dev):
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    return GaussianParams(
+        xyz=f32(rng.normal(size=(P, 3)) + [0, 0, 3.0]),
+        features_dc=f32(rng.normal(size=(P, 1, 3)) * 0.5),
+        features_rest=f32(rng.normal(size=(P, 15, 3)) * 0.1),
+        scaling=f32(rng.uniform(-3.5, -1.5, size=(P, 3))),
+        rotation=f32(rng.normal(size=(P, 4))),
+        opacity=f32(rng.uniform(-2.0, 3.0, size=(P, 1))),
+        alive=torch.ones(P, dtype=torch.bool, device=dev),
+    )
+
+
+def _camera(dev):
+    return make_camera(np.eye(4), 0.8279, 0.8279, W, H, device=dev)
+
+
+def test_cuda_backward_launches_the_kernels(monkeypatch, dev):
+    """On CUDA tensors the render's forward and backward go through K1, K2
+    and K3, never through their plain versions."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    for mod, name in ((torch_blend, "blend_tiles_torch"),
+                      (torch_blend, "blend_tiles_bwd_torch"),
+                      (cuda_repack, "repack_cols_torch")):
+        monkeypatch.setattr(mod, name, refuse)
+    params = _scene(300, 0, dev)
+    before = (cuda_blend.blend_fwd.launches, cuda_blend.blend_bwd.launches,
+              cuda_repack.repack_cols.launches)
+    out = render_tiled(params, _camera(dev), torch.zeros(3, device=dev))
+    (out["render"].sum() + out["depth"].sum()).backward()
+    torch.cuda.synchronize()
+    after = (cuda_blend.blend_fwd.launches, cuda_blend.blend_bwd.launches,
+             cuda_repack.repack_cols.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    for name, p in params.named_parameters():
+        assert torch.isfinite(p.grad).all(), name
+
+
+def test_kernels_match_their_plain_versions(dev):
+    """K2 within 5e-4 of each channel's max on every live row and zero
+    beyond; K3 bit-equal; the whole gradient of the cuda backend within
+    5e-4 of the group's max against the torch backend."""
+    params = _scene(2000, 1, dev)
+    cam = _camera(dev)
+    with torch.no_grad():
+        proc = preprocess_gaussians(params, cam, 3)
+        pairs = binning.sort_pairs(proc, H, W, 16, 16384)
+        attrs = binning.gaussian_attr_table(proc)[pairs.src]
+        state, _ = cuda_blend.blend_fwd(attrs, pairs.tile_start,
+                                        pairs.tile_end, W // 16)
+        g = torch.Generator(device=dev).manual_seed(0)
+        d_state = torch.randn(state.shape, generator=g, device=dev)
+    args = (attrs, pairs.tile_start, pairs.tile_end, state, d_state)
+    out = cuda_blend.blend_bwd(*args, W // 16)
+    ref = torch_blend.blend_tiles_bwd_torch(*args, W // 16, 16, 128)
+    n = int(pairs.total)
+    assert n > 1000
+    scale = ref[:n, :10].abs().amax(dim=0)
+    assert ((out[:n, :10] - ref[:n, :10]).abs() <= 5e-4 * scale).all()
+    assert not out[n:].any() and not out[:, 10:].any()
+    assert torch.equal(cuda_repack.repack_cols(out, pairs.order, pairs.total),
+                       cuda_repack.repack_cols_torch(out, pairs.order, pairs.total))
+
+    def grads(backend):
+        for t in params.parameters():
+            t.grad = None
+        o = render_tiled(params, cam, torch.zeros(3, device=dev), backend=backend)
+        (o["render"].square().sum() + o["final_T"].sum()).backward()
+        return {k: t.grad.clone() for k, t in params.named_parameters()}
+
+    gk, gp = grads("cuda"), grads("torch")
+    for k in gk:
+        assert ((gk[k] - gp[k]).abs() <= 5e-4 * gp[k].abs().max()).all(), k
+
+
+def test_trainer_steps_on_the_card(dev):
+    params = _scene(500, 2, dev)
+    cams = [make_camera(np.array([[1, 0, 0, dx], [0, 1, 0, 0], [0, 0, 1, 0],
+                                  [0, 0, 0, 1]], np.float64),
+                        0.8279, 0.8279, W, H, device=dev) for dx in (-0.2, 0.2)]
+    with torch.no_grad():
+        views = [(c, render_tiled(params, c, torch.zeros(3, device=dev))["render"])
+                 for c in cams]
+    start = GaussianParams.from_param_dict(
+        dict(params.param_dict(), f_dc=params.features_dc.detach() * 0.5),
+        params.alive)
+    # room for the clones and split children
+    start, _, _ = grow_capacity(start, adam_init(start.param_dict()),
+                                DensifyStats.zero(500, dev), 1500)
+    # one densify, after step 8, that clones or splits most Gaussians
+    tr = Trainer(start, GSConfig(iterations=12, densify_from_iter=7,
+                                 densification_interval=8,
+                                 densify_grad_threshold=1e-5), 1.0)
+    losses = []
+    state = tr.run(views, callback=lambda it, st, loss: losses.append(float(loss)))
+    assert int(state.step) == 12 and state.params.xyz.is_cuda
+    assert int(state.params.num_alive) != 500
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[5:8]) < np.mean(losses[:3])

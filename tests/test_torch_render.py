@@ -78,16 +78,17 @@ def test_render_tiled_overflow_matches_jax(rng):
 
 
 def test_torch_backend_is_the_plain_blend_on_cpu(rng):
-    """On CPU tensors both backends run the plain version; the kernel's
-    launch counter does not move."""
+    """On CPU tensors both backends run the plain version; the kernels'
+    launch counters do not move."""
     jp = make_random_gaussians(60, rng, scale_range=(-3.0, -1.0))
     params, cam = port_params(jp), port_camera(make_test_camera(32, 32))
     bg = torch.tensor([0.3, 0.2, 0.1])
-    before = cuda_blend.blend_tiles.launches
+    before = (cuda_blend.blend_fwd.launches, cuda_blend.blend_bwd.launches)
     with torch.no_grad():
         a = trender(params, cam, bg, chunk=16, backend="cuda")
         b = trender(params, cam, bg, chunk=16, backend="torch")
-    assert cuda_blend.blend_tiles.launches == before
+    assert (cuda_blend.blend_fwd.launches,
+            cuda_blend.blend_bwd.launches) == before
     for k in ("render", "depth", "acc", "final_T", "n_contrib"):
         assert torch.equal(a[k], b[k]), k
     with pytest.raises(ValueError):
@@ -102,3 +103,17 @@ def test_plain_blend_is_differentiable(rng):
     for name, p in params.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
     assert params.xyz.grad.abs().sum() > 0
+
+
+def test_pair_cap_alignment_matches_jax(rng):
+    """pair_cap 1100 at chunk 64: the JAX package aligns to lcm(64, 1024),
+    giving 2048 slots; aligning to the chunk alone would give 1152.  A scene
+    with a pair count between the two must not overflow on either side."""
+    jp = make_random_gaussians(250, rng, scale_range=(-2.0, -0.5))
+    ref, out = _render_both(jp, make_test_camera(48, 48),
+                            np.zeros(3, np.float32), "xla",
+                            pair_cap=1100, chunk=64)
+    assert 1152 < int(ref["num_pairs"]) < 2048
+    assert int(out["num_pairs"]) == int(ref["num_pairs"])
+    assert not bool(ref["overflow"]) and not bool(out["overflow"])
+    _assert_match(ref, out)
