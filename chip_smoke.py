@@ -5,7 +5,8 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
 1. Set-up: prints the card's name and power limit, builds the kernels K1
    (``csrc/blend_fwd.cu``), K2 (``csrc/blend_bwd.cu``) and K3
    (``csrc/repack_cols.cu``) with nvcc, one process each, all at once, into
-   ``build/kernels/``, and prints the build time and ptxas's lines.
+   ``build/kernels/``, and prints the build time, ptxas's lines and the
+   blocks per SM that its registers and shared memory imply.
 2. K1 against its plain PyTorch version on a 20k-Gaussian 512x512 scene:
    render/final_T/acc atol 1e-5, depth atol 1e-4, n_contrib equal.
 3. Serving path: builds the 1M-Gaussian, SH-degree-3 scene from seed 42,
@@ -26,7 +27,13 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    random cotangents from a seed: K2 at 20k Gaussians on every channel
    within 5e-4 of the channel's max |ref| on rows [0, num_pairs) and zero
    beyond; at 1M the same on >= 99.9% of rows (the latch, as in 4), with
-   the relative L2 error per channel; K3 bit-equal at 1M.  The binning VJP
+   the relative L2 error per channel, and two runs of K2 on the same inputs
+   bit-equal; K3 bit-equal at 1M.  K2 on synthetic tiles whose ranges are
+   empty or 1, 31 ... 65, 127 ... 129, 256, 257 and more rows long (the
+   batch and stage edges) and on an opaque wall that latches in the first
+   batch; K3 on a shuffled permutation whose dead rows land in the middle
+   of slot order, with a live count of 0, below, at and above the row
+   count, bit-equal.  The binning VJP
    (K3, float64 prefix sum, boundary gather) against a float64 index_add
    at 1M, beside the same VJP with an fp32 prefix sum.  The whole
    gradient, ``backend="cuda"`` against ``backend="torch"`` (the plain
@@ -44,15 +51,19 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    rows against a float64 brute force.
 8. Training times at the main-path shape, device ms by events and host
    wall ms, two rounds: the whole step, its forward, its backward, K2, the
-   binning VJP with K3, K3, K3's library call, Adam, densify; the plain
-   K2's time; a torch.profiler table of one step and the device's busy
-   share; K2's and K3's bounds; the peak device memory of a step.
+   binning VJP with K3, K3, K3's library call, K2's zero fill alone, Adam,
+   densify; the plain K2's time; a torch.profiler table of one step and the
+   device's busy share; K2's and K3's bounds; the tiles' range lengths, the
+   rows K2 walks and how many (warp, row) sums it takes; K2 on the longest
+   tile alone; the peak device memory of a step.
 
 Prints the kernels line and the card line, then the result line last.
 Exits non-zero, printing no result, when any phase fails or no CUDA device
 is present.
 """
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -168,47 +179,6 @@ def device_profile(fn, n, top=8):
     return sum(t for _, t in kernels), wall * 1e3 / n, kernels[:top]
 
 
-def k1_work(bins, grid_x, chunk=128):
-    """What the blend must compute on these bins, walked like the plain
-    version: per pixel, the products evaluated before its done latch, those
-    with power <= 0 (one exp each) and the commits."""
-    from luciddreamer_tpu_torch.render import blend_math, torch_blend
-    from luciddreamer_tpu_torch.render.binning import (
-        A_CA, A_CB, A_CC, A_OP, A_VALID, A_X, A_Y)
-
-    nt = bins.tile_start.shape[0]
-    px, py = torch_blend.pixel_coords(nt, grid_x, 16, bins.attrs.device)
-    px, py = px[:, None, :], py[:, None, :]
-    start = bins.tile_start.long()[:, None]
-    end = bins.tile_end.long()[:, None]
-    T = torch.ones_like(px[:, 0])
-    done = torch.zeros_like(T, dtype=torch.bool)
-    n_eval = n_exp = n_commit = 0
-    k = torch.arange(chunk, device=px.device)
-    for c0 in range(0, int((end - start).max()), chunk):
-        rows = start + c0 + k
-        live = (rows < end)[..., None]
-        a = bins.attrs[torch.where(rows < end, rows, 0)]
-        col = lambda i: a[..., i, None]
-        alpha, in_ellipse = blend_math.gaussian_alpha(
-            col(A_X) - px, col(A_Y) - py, col(A_CA), col(A_CB), col(A_CC),
-            col(A_OP))
-        valid = (live & (col(A_VALID) > 0.5) & in_ellipse
-                 & (alpha >= blend_math.ALPHA_MIN))
-        a_eff = torch.where(valid, alpha, 0.0)
-        t_after = T[:, None] * torch.cumprod(1.0 - a_eff, dim=1)
-        done_after = done[:, None] | (t_after < blend_math.T_MIN)
-        done_before = torch.cat([done[:, None], done_after[:, :-1]], dim=1)
-        evaluated = live & ~done_before
-        n_eval += int(evaluated.sum())
-        n_exp += int((evaluated & in_ellipse & (col(A_VALID) > 0.5)).sum())
-        commit = valid & ~done_after
-        n_commit += int(commit.sum())
-        T = T * torch.prod(torch.where(commit, 1.0 - a_eff, 1.0), dim=1)
-        done = done_after[:, -1]
-    return n_eval, n_exp, n_commit
-
-
 def bound_of(nbytes, flops, sfu_ops):
     """(bound ms, "bytes" or "operations") on the published peaks."""
     bound = {
@@ -217,6 +187,16 @@ def bound_of(nbytes, flops, sfu_ops):
     }
     by = max(bound, key=bound.get)
     return bound[by], by, bound
+
+
+def blocks_per_sm(regs, smem, threads=256):
+    """Resident blocks per SM that a kernel's registers per thread and
+    static shared memory per block allow on an H100: 65,536 registers
+    handed out in units of 8 per thread, 233,472 B of shared memory with
+    1 KB reserved per block, 2,048 threads."""
+    by_regs = 65536 // (-(-regs // 8) * 8 * threads)
+    by_smem = 233472 // (smem + 1024)
+    return min(by_regs, by_smem, 2048 // threads)
 
 
 def print_build_report():
@@ -231,6 +211,12 @@ def print_build_report():
         for line in kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build]   {line.strip()}")
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                smem = re.search(r"(\d+) bytes smem", line)
+                regs, smem = int(used.group(1)), int(smem.group(1)) if smem else 0
+                print(f"[build]   -> {blocks_per_sm(regs, smem)} blocks of 256 "
+                      f"threads per SM ({regs} registers, {smem} B shared memory)")
 
 
 # ---------------------------------------------------------------- serving
@@ -242,6 +228,7 @@ def serving(bg, dev):
     from luciddreamer_tpu_torch.model.ply import save_ply
     from luciddreamer_tpu_torch.render import cuda_blend, torch_blend
     from luciddreamer_tpu_torch.render.binning import build_tile_bins, num_tiles_for
+    from luciddreamer_tpu_torch.render.blend_cases import blend_work
     from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians
     from luciddreamer_tpu_torch.render.tiled import (
         default_pair_capacity, render_tiled)
@@ -352,7 +339,8 @@ def serving(bg, dev):
               f"{wall_ms:.4f} ms per frame (profiler on); by kernel:")
         for name, t in top:
             print(f"[profile]   {t:9.4f} ms  {name[:100]}")
-        n_eval, n_exp, n_commit = k1_work(bins, grid_x)
+        work = blend_work(bins.attrs, bins.tile_start, bins.tile_end, grid_x)
+    n_eval, n_exp, n_commit = work["evaluated"], work["exps"], work["commits"]
     num_pairs = int(bins.num_pairs)
     nt = bins.tile_start.shape[0]
     k1_bytes = num_pairs * BYTES_PER_PAIR + nt * (2 * 4 + 256 * 8 * 4)
@@ -394,16 +382,26 @@ def frame_inputs(params, cam, seed):
     return pairs, attrs, state, d_state
 
 
+def k2_runs(attrs, tile_start, tile_end, state, d_state, grid_x):
+    """K2 twice and the plain K2 on the same inputs: (out, rerun, ref)."""
+    from luciddreamer_tpu_torch.render import cuda_blend, torch_blend
+
+    args = (attrs, tile_start, tile_end, state, d_state)
+    out = cuda_blend.blend_bwd(*args, grid_x)
+    rerun = cuda_blend.blend_bwd(*args, grid_x)
+    ref = torch_blend.blend_tiles_bwd_torch(*args, grid_x, 16, 128)
+    torch.cuda.synchronize()
+    return out, rerun, ref
+
+
 def check_k2(params, cam, tag, row_share):
     """K2 against the plain K2; returns (pairs, attrs, state, d_state, K2's
     output, max abs error)."""
-    from luciddreamer_tpu_torch.render import cuda_blend, torch_blend
-
     pairs, attrs, state, d_state = frame_inputs(params, cam, seed=11)
-    args = (attrs, pairs.tile_start, pairs.tile_end, state, d_state)
-    out = cuda_blend.blend_bwd(*args, W // 16)
-    ref = torch_blend.blend_tiles_bwd_torch(*args, W // 16, 16, 128)
-    torch.cuda.synchronize()
+    out, rerun, ref = k2_runs(attrs, pairs.tile_start, pairs.tile_end, state,
+                              d_state, W // 16)
+    rerun_equal = torch.equal(out, rerun)
+    del rerun
     n = int(pairs.total)
     diff = (out[:n, :10] - ref[:n, :10]).abs()
     scale = ref[:n, :10].abs().amax(dim=0).clamp_min(1e-30)
@@ -417,13 +415,90 @@ def check_k2(params, cam, tag, row_share):
           "max |d|/channel max "
           + " ".join(f"{v:.2e}" for v in (diff / scale).amax(dim=0).tolist())
           + "; relative L2 " + " ".join(f"{v:.2e}" for v in rel_l2)
-          + f"; rows past num_pairs and columns 10-15 zero: {tail_zero}")
+          + f"; rows past num_pairs and columns 10-15 zero: {tail_zero}"
+          + f"; two runs bit-equal: {rerun_equal}")
     check(bool(torch.isfinite(out).all()), f"K2 non-finite at {tag}")
+    check(rerun_equal, f"two runs of K2 on the same inputs differ at {tag}")
     check(tail_zero, f"K2 left non-zero rows past num_pairs at {tag}")
     check(rows_ok >= row_share,
           f"K2 disagrees with the plain version at {tag}: {rows_ok:.6f} of rows")
     del ref
     return pairs, attrs, state, d_state, out, max_err
+
+
+def k2_against_plain(attrs, tile_start, tile_end, grid_x, seed=3):
+    """K1's state on these tiles, a random cotangent, K2 twice and the plain
+    K2: (out, rerun, ref, live rows)."""
+    from luciddreamer_tpu_torch.render import cuda_blend
+
+    state, _ = cuda_blend.blend_fwd(attrs, tile_start, tile_end, grid_x)
+    g = torch.Generator(device=attrs.device).manual_seed(seed)
+    d_state = torch.randn(state.shape, generator=g, device=attrs.device)
+    d_state[:, 6] = 0.0
+    return (*k2_runs(attrs, tile_start, tile_end, state, d_state, grid_x),
+            int(tile_end.max()))
+
+
+def check_k2_edges(dev):
+    from luciddreamer_tpu_torch.render.blend_cases import (
+        EDGE_GRID_X, K2_EDGE_CASES, blend_work, k2_edge_case)
+
+    for name, (lengths, wall, _) in K2_EDGE_CASES.items():
+        attrs, ts, te = k2_edge_case(name, dev)
+        work = blend_work(attrs, ts, te, EDGE_GRID_X)
+        multi = work["warp_rows"] - work["warp_rows_single"]
+        print(f"[k2] edge case {name}: (warp, row) pairs with a commit on "
+              f"several lanes {multi}, on one lane {work['warp_rows_single']}, "
+              f"on none {work['warp_rows_none']}")
+        check(min(multi, work["warp_rows_single"], work["warp_rows_none"]) > 0,
+              f"edge case {name} does not reach all three of K2's sum branches")
+        out, rerun, ref, n = k2_against_plain(attrs, ts, te, EDGE_GRID_X)
+        scale = ref[:n, :10].abs().amax(dim=0).clamp_min(1e-30)
+        rel = ((out[:n, :10] - ref[:n, :10]).abs() / scale).amax(dim=0)
+        nonzero = int(ref[:n, :10].any(dim=1).sum())
+        tail_zero = not bool(out[n:].any()) and not bool(out[:, 10:].any())
+        # the rows the plain version leaves zero (after a tile's latch, not
+        # committed, invalid) are exactly zero in K2's output too
+        zeros_kept = not bool(out[:n, :10][~ref[:n, :10].any(dim=1)].any())
+        print(f"[k2] edge case {name}: ranges {list(lengths)}, {n} rows, "
+              f"{nonzero} with a gradient; max |d| / channel max "
+              f"{float(rel.max()):.2e}; zero rows kept zero: {zeros_kept}; "
+              f"dead tail and columns 10-15 zero: {tail_zero}; two runs "
+              f"bit-equal: {torch.equal(out, rerun)}")
+        check(bool(torch.isfinite(out).all()), f"K2 non-finite on edge case {name}")
+        check(nonzero > 0, f"edge case {name} has no gradient at all")
+        check(float(rel.max()) <= 5e-4,
+              f"K2 disagrees with the plain version on edge case {name}")
+        check(tail_zero and zeros_kept,
+              f"K2 wrote where it must leave zeros on edge case {name}")
+        check(torch.equal(out, rerun), f"two runs of K2 differ on edge case {name}")
+        if wall:
+            # sanity of the case: every wall tile latches in its first 32
+            # rows, everything after is zero
+            check(int(work["walked"].max()) <= 32
+                  and not bool(ref[int(ts[0]) + 32:int(te[0])].any()),
+                  "the wall case does not latch in its first batch")
+
+
+K3_EDGE_N = 1_000_003          # not a multiple of the kernels' block
+K3_EDGE_LIVE = (0, 600_000, K3_EDGE_N, K3_EDGE_N + 5)
+
+
+def check_k3_edges(dev):
+    """K3 on a shuffled permutation: the dead rows' slots lie in the middle
+    of slot order; a live count of 0, below n, n, and above n (overflow)."""
+    from luciddreamer_tpu_torch.render import cuda_repack
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((K3_EDGE_N, 16), generator=g, device=dev)
+    order = torch.randperm(K3_EDGE_N, generator=g, device=dev)
+    for live in K3_EDGE_LIVE:
+        total = torch.tensor(live, device=dev)
+        equal = torch.equal(cuda_repack.repack_cols(x, order, total),
+                            cuda_repack.repack_cols_torch(x, order, total))
+        print(f"[k3] edge case: {K3_EDGE_N} rows, shuffled order, live count "
+              f"{live}: bit-equal to the plain version: {equal}")
+        check(equal, f"K3 disagrees with its plain version at live count {live}")
 
 
 def whole_gradient(params, cam, tag):
@@ -497,7 +572,8 @@ def training(app, cams, dev):
     from luciddreamer_tpu_torch.model.optim import (
         adam_init, adam_update, learning_rates)
     from luciddreamer_tpu_torch.render import (
-        binning, cuda_blend, cuda_repack, torch_blend)
+        binning, cuda_blend, cuda_repack, kernels, torch_blend)
+    from luciddreamer_tpu_torch.render.blend_cases import blend_work
     from luciddreamer_tpu_torch.render.tiled import render_tiled
     from luciddreamer_tpu_torch.train.loop import Trainer
 
@@ -609,6 +685,17 @@ def training(app, cams, dev):
     d_attrs = cuda_blend.blend_bwd(attrs, pairs.tile_start, pairs.tile_end,
                                    kstate, d_state, W // 16)
     lib_out = torch.empty((10, attrs.shape[0]), device=dev)
+    # the zero fill that K2's launch function runs before its kernel, alone
+    fill_out = torch.empty_like(attrs)
+    fill = ctypes.CDLL(str(kernels.library_path("blend_bwd"))).blend_bwd_zero_fill
+    fill.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fill.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def zero_fill():
+        check(fill(fill_out.data_ptr(), fill_out.shape[0], stream) == 0,
+              "K2's zero fill failed")
+
     _, _, grads, _ = tr._loss_and_grads(state, cam, img, None)
     pdict = state.params.param_dict()
     lrs = learning_rates(cfg, tr.extent, state.step)
@@ -618,6 +705,7 @@ def training(app, cams, dev):
         "backward": (backward, 5),
         "k2": (lambda: cuda_blend.blend_bwd(
             attrs, pairs.tile_start, pairs.tile_end, kstate, d_state, W // 16), 20),
+        "k2_zero_fill": (zero_fill, 20),
         "binning_vjp": (lambda: binning.gather_vjp(
             d_attrs, pairs.order, pairs.offsets_p1, pairs.total), 20),
         "k3": (lambda: cuda_repack.repack_cols(d_attrs, pairs.order,
@@ -643,7 +731,11 @@ def training(app, cams, dev):
                 d_attrs, pairs.order, pairs.total), 5)
     print(f"[time] plain K2 {k2_plain_ms:.4f} ms, plain K3 {k3_plain_ms:.4f} ms "
           "(device, per call)")
-    del loss, leaves
+    for r, times in enumerate(rounds):
+        print(f"[time] K2 zero fill round {r}: {times['k2_zero_fill'][0]:.4f} ms "
+              f"of K2's {times['k2'][0]:.4f} ms (device, per call), the "
+              f"kernel alone {times['k2'][0] - times['k2_zero_fill'][0]:.4f} ms")
+    del loss, leaves, fill_out
     dev_ms, wall_ms, top = device_profile(step, 3, top=12)
     print(f"[profile] training step: device kernels {dev_ms:.4f} ms, host "
           f"wall {wall_ms:.4f} ms per step (profiler on), device busy share "
@@ -662,12 +754,38 @@ def training(app, cams, dev):
 
     # ---- bounds of K2 and K3 at this frame ----
     with torch.no_grad():
-        bins = binning.TileBins(attrs, pairs.tile_start, pairs.tile_end,
-                                pairs.total, pairs.total > attrs.shape[0])
-        n_eval, n_exp, n_commit = k1_work(bins, W // 16)
+        walk = blend_work(attrs, pairs.tile_start, pairs.tile_end, W // 16)
+    n_eval, n_exp, n_commit = walk["evaluated"], walk["exps"], walk["commits"]
     n = int(pairs.total)
     nt = pairs.tile_start.shape[0]
     cap = attrs.shape[0]
+
+    # ---- the tiles' ranges, what K2 walks of them, and the longest alone ----
+    lengths = (pairs.tile_end - pairs.tile_start).double()
+    walked = walk["walked"].double()
+    stats = lambda v: (f"mean {float(v.mean()):.1f}, p99 "
+                       f"{float(torch.quantile(v, 0.99)):.0f}, max {int(v.max())}")
+    print(f"[tiles] {nt} tiles at this frame: range length {stats(lengths)}; "
+          f"rows walked before the tile's last pixel is done {stats(walked)}, "
+          f"{int(walked.sum())} of {n} rows in all")
+    print(f"[tiles] K2's sums: (warp, row) pairs walked {int(walked.sum()) * 8}, "
+          f"with a commit {walk['warp_rows']} (a warp an 8x4 block of pixels; "
+          f"{walk['warp_rows_strip']} if it were a 16x2 strip), with exactly "
+          f"one {walk['warp_rows_single']}; commits per (warp, row) with any "
+          f"{n_commit / max(walk['warp_rows'], 1):.2f}")
+    longest = int(walked.argmax())
+    only = torch.zeros(nt, dtype=torch.bool, device=dev)
+    only[longest] = True
+    zero = torch.zeros_like(pairs.tile_start)
+    one_start = torch.where(only, pairs.tile_start, zero)
+    one_end = torch.where(only, pairs.tile_end, zero)
+    one_ms, _ = timed(lambda: cuda_blend.blend_bwd(
+        attrs, one_start, one_end, kstate, d_state, W // 16), 20)
+    fill_ms = min(r["k2_zero_fill"][0] for r in rounds)
+    print(f"[tiles] K2 with every range but tile {longest}'s emptied "
+          f"({int(lengths[longest])} rows, {int(walked[longest])} walked): "
+          f"{one_ms:.4f} ms with the zero fill, {one_ms - fill_ms:.4f} ms "
+          "without (device, per call)")
     k2_bytes = (n * (K2_READ_PER_PAIR + K2_WRITE_PER_PAIR)
                 + nt * (2 * 4 + 256 * K2_PIXEL_BYTES))
     k2_flops = (n_eval * FLOPS_EVAL + n_exp * FLOPS_EXP_PATH
@@ -717,6 +835,8 @@ def main() -> int:
         check_k2(small, cams[0], "20k llff frame 0", 1.0)
         whole_gradient(small, cams[0], "20k llff frame 0")
         del small
+        check_k2_edges(dev)
+        check_k3_edges(dev)
         pairs, attrs, _, _, d_attrs, k2_err = check_k2(
             app.params, cams[0], "1M llff frame 0", 0.999)
         k3_err = check_vjp(attrs, pairs, d_attrs)

@@ -5,7 +5,10 @@ tied together by a ``torch.autograd.Function``.
 K1 replaces ``luciddreamer_tpu/render/pallas_blend.py::_fwd_kernel`` and K2
 ``_bwd_kernel``/``_bwd_chunk_body``; both run one thread block per 16x16
 tile and one thread per pixel, see the sources for their design and what
-bounds them on the card.  They are built at first use by ``kernels``.
+bounds them on the card.  K2's launch function zero-fills its output and
+then runs the kernel, which sums each pair's gradient only over the warps
+where a pixel committed and loads its batches with ``cp.async``.  They are
+built at first use by ``kernels``.
 
 ``blend_fwd`` and ``blend_bwd`` launch the kernels on CUDA tensors and
 count each launch in ``blend_fwd.launches`` / ``blend_bwd.launches``.

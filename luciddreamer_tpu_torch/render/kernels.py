@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every kernel lives in ``csrc/<name>.cu`` with a plain C interface: one
-launch function ``<name>(...)`` that enqueues the kernel on the stream it
-is given and returns ``cudaGetLastError()``, and ``kernel_error_string``.
+launch function ``<name>(...)`` that enqueues the kernel's passes on the
+stream it is given and returns ``cudaGetLastError()``, and
+``kernel_error_string``.
 At first use the source is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` at the root of the checkout, keyed by a hash of the
 source and the flags; ptxas's register, spill and shared-memory report is

@@ -8,6 +8,9 @@ tiled render with ``backend="pallas"`` and ``"xla"``.  Tolerances: K2 rows
 atol 1e-5 scaled by each channel's max; the gather VJP atol 1e-5 scaled by
 each field's max (the JAX prefix sum runs in fp32); render gradients atol
 5e-4 scaled by the group's max, as tests/test_pallas_blend.py; K3 exact.
+The contracts that the CUDA kernels' edge cases rest on are pinned here on
+the plain versions: K3 against a direct numpy loop, K2 on tile ranges that
+cross 128 and 256 rows.
 """
 import dataclasses
 
@@ -25,7 +28,7 @@ from luciddreamer_tpu.render.pallas_blend import _bwd_call, _fwd_call
 from luciddreamer_tpu.render.preprocess import preprocess_gaussians as jpre
 from luciddreamer_tpu.render.tiled import render_tiled as jrender
 from luciddreamer_tpu_torch.render import (
-    binning, cuda_blend, cuda_repack, kernels, torch_blend,
+    binning, blend_cases, cuda_blend, cuda_repack, kernels, torch_blend,
 )
 from luciddreamer_tpu_torch.render.dense import render_dense as tdense
 from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians as tpre
@@ -88,6 +91,94 @@ def test_plain_k2_matches_jax_bwd_call(rng, case):
     for c in range(10):
         assert_scaled_close(out[:n, c], ref[:n, c], 1e-5, err_msg=f"channel {c}")
     assert not np_(out)[n:].any() and not np_(out)[:, 10:].any()
+
+
+@pytest.mark.parametrize("P,opaque", [(200, False), (300, False), (300, True)],
+                         ids=["cross_128", "cross_256", "cross_256_wall"])
+def test_plain_k2_long_ranges_match_jax_bwd_call(rng, P, opaque):
+    """Tile ranges that cross 128 and 256 rows (the batch and stage edges of
+    the CUDA kernel, the chunk edge of the plain walk): every Gaussian is
+    wide enough to touch all four tiles, so each range holds about P rows
+    (256 can only be crossed with more than the 250 Gaussians the other
+    parity tests keep to).  With the opaque wall every pixel latches early:
+    the rows after a tile's latch are zero, as are columns 10-15."""
+    if opaque:     # splats wider than the image, stacked at its centre
+        jp = _wall(make_random_gaussians(P, rng, scale_range=(-0.3, 0.0),
+                                         spread=0.02), P)
+    else:
+        jp = make_random_gaussians(P, rng, scale_range=(-1.5, -0.9), spread=0.2)
+    W = H = 32
+    chunk = 128
+    gx, gy = W // TILE, H // TILE
+    nt = gx * gy
+    jcam = make_test_camera(W, H)
+    jb = jax.jit(lambda p: jbins(jpre(p, jcam, 3), H, W, TILE, 2048, chunk))(jp)
+    segs = (jb.seg_tile, jb.seg_k0, jb.seg_lo, jb.seg_hi, jb.seg_chunk)
+    state = jax.jit(lambda a, *s: _fwd_call(a, *s, gx, gy, TILE, chunk,
+                                            interpret=True))(jb.attrs, *segs)
+    dstate = rng.normal(size=state.shape).astype(np.float32)
+    ref = np.asarray(jax.jit(
+        lambda a, st, ds, *s: _bwd_call(a, *s, st, ds, gx, gy, TILE, chunk,
+                                        interpret=True)
+    )(jb.attrs, state, jnp.asarray(dstate), *segs))
+
+    start, end = jax_tile_ranges(jb, nt, chunk)
+    assert (end - start).max() > (256 if P > 256 else 128)
+    t_attrs = torch.as_tensor(np.array(jb.attrs))
+    t_start = torch.as_tensor(start, dtype=torch.int32)
+    t_end = torch.as_tensor(end, dtype=torch.int32)
+    t_state = torch.as_tensor(np.array(state)[:nt, :7])
+    t_dstate = torch.as_tensor(dstate[:nt, :7]).contiguous()
+    t_dstate[:, 6] = 0.0
+    out = torch_blend.blend_tiles_bwd_torch(
+        t_attrs, t_start, t_end, t_state, t_dstate, gx, TILE, chunk)
+    n = int(jb.num_pairs)
+    for c in range(10):
+        assert_scaled_close(out[:n, c], ref[:n, c], 1e-5, err_msg=f"channel {c}")
+    assert not np_(out)[n:].any() and not np_(out)[:, 10:].any()
+
+    # rows after the tile's last commit are exactly zero
+    fwd = torch_blend.blend_tiles_torch(t_attrs, t_start, t_end, gx, TILE, chunk)
+    last = fwd.n_contrib.amax(dim=1).numpy()          # 1 + position in the range
+    after = [np_(out)[s + l:e] for s, l, e in zip(start, last, end)]
+    assert not any(a.any() for a in after)
+    if opaque:
+        assert bool(fwd.done.all()) and min(len(a) for a in after) > 128
+
+
+@pytest.mark.parametrize("case", list(blend_cases.K2_EDGE_CASES))
+def test_k2_edge_cases_reach_every_sum_branch(case):
+    """The synthetic pair streams that the CUDA backward is held against on
+    the card: each has (warp, row) pairs with a commit on several lanes, on
+    one lane and on none (the kernel's three sum branches), the wall
+    latches every tile within 32 rows, and the plain backward on them keeps
+    its contract: a gradient on committed rows, zeros after a tile's last
+    walked row, in the dead tail and in columns 10-15."""
+    attrs, ts, te = blend_cases.k2_edge_case(case, "cpu")
+    gx = blend_cases.EDGE_GRID_X
+    lengths, wall, _ = blend_cases.K2_EDGE_CASES[case]
+    assert (te - ts).tolist() == list(lengths) and attrs.shape[0] > int(te.max())
+    work = blend_cases.blend_work(attrs, ts, te, gx)
+    assert work["warp_rows"] > work["warp_rows_single"] > 0
+    assert work["warp_rows_none"] > 0
+    assert work["commits"] > 0 and work["evaluated"] >= work["exps"] >= work["commits"]
+    walked = work["walked"]
+    assert (walked <= te - ts).all()
+    if wall:
+        assert int(walked.max()) <= 32
+    fwd = torch_blend.blend_tiles_torch(attrs, ts, te, gx, TILE, 128)
+    assert int(fwd.n_contrib.sum()) >= work["commits"]
+    state, _ = cuda_blend.blend_fwd_torch(attrs, ts, te, gx, TILE, 128)
+    d_state = torch.as_tensor(np.random.default_rng(3).normal(
+        size=tuple(state.shape)).astype(np.float32))
+    d_state[:, 6] = 0.0
+    out = torch_blend.blend_tiles_bwd_torch(attrs, ts, te, state, d_state, gx,
+                                            TILE, 128)
+    n = int(te.max())
+    assert int(out[:n, :10].any(dim=1).sum()) > 0.3 * int(walked.sum())
+    for s0, w, e in zip(ts.tolist(), walked.tolist(), te.tolist()):
+        assert not out[s0 + w:e].any()
+    assert not out[n:].any() and not out[:, 10:].any()
 
 
 def test_plain_k2_matches_autograd_of_plain_blend(rng):
@@ -220,6 +311,40 @@ def test_plain_k3_matches_jax_repack_cols(rng):
     j_slot[:, live:] = 0.0
     out = cuda_repack.repack_cols(tx, torch.as_tensor(order), torch.tensor(live))
     np.testing.assert_array_equal(np_(out), j_slot)
+
+
+K3_CASES = {
+    # rows, live count, whether order is shuffled over all rows (the dead
+    # rows' slots then lie in the middle of slot order) or only over the
+    # live ones (the pair sort's form: the dead tail keeps slot order)
+    "interleaved_dead": (1500, 1100, True),
+    "sorted_dead_tail": (1500, 1100, False),
+    "none_live": (1500, 0, True),
+    "all_live": (1500, 1500, True),
+    "overflow": (1500, 1700, True),
+    "ragged_small": (77, 50, True),
+    "one_row": (1, 1, True),
+}
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_plain_k3_contract(rng, case):
+    """``repack_cols`` on CPU tensors (the plain version) against a direct
+    loop: any permutation, rows at or past the live count give zeros, the
+    live count may exceed the row count, every output element written."""
+    n, live, shuffled = K3_CASES[case]
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    if shuffled:
+        order = rng.permutation(n)
+    else:
+        order = np.concatenate([rng.permutation(live), np.arange(live, n)])
+    ref = np.full((10, n), np.nan, np.float32)
+    for i in range(n):
+        ref[:, order[i]] = x[i, :10] if i < live else 0.0
+    out = cuda_repack.repack_cols(torch.as_tensor(x), torch.as_tensor(order),
+                                  torch.tensor(live))
+    assert out.shape == (10, n) and out.dtype == torch.float32
+    np.testing.assert_array_equal(np_(out), ref)
 
 
 def test_render_dense_matches_jax(rng):

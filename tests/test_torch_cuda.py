@@ -20,6 +20,9 @@ from luciddreamer_tpu_torch.model.optim import adam_init
 from luciddreamer_tpu_torch.render import (
     binning, cuda_blend, cuda_repack, torch_blend,
 )
+from luciddreamer_tpu_torch.render.blend_cases import (
+    EDGE_GRID_X, K2_EDGE_CASES, blend_work, k2_edge_case,
+)
 from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians
 from luciddreamer_tpu_torch.render.tiled import render_tiled
 from luciddreamer_tpu_torch.train.loop import Trainer
@@ -76,10 +79,62 @@ def test_cuda_backward_launches_the_kernels(monkeypatch, dev):
         assert torch.isfinite(p.grad).all(), name
 
 
-def test_kernels_match_their_plain_versions(dev):
-    """K2 within 5e-4 of each channel's max on every live row and zero
-    beyond; K3 bit-equal; the whole gradient of the cuda backend within
-    5e-4 of the group's max against the torch backend."""
+K3_N = 100_003                 # not a multiple of the kernels' block
+K3_CASES = {
+    # live count, whether the permutation is shuffled over all rows (the dead
+    # rows' slots then lie in the middle of slot order) or only over the
+    # live ones (the pair sort's form)
+    "k3_interleaved_dead": (60_000, True),
+    "k3_sorted_dead_tail": (60_000, False),
+    "k3_none_live": (0, True),
+    "k3_all_live": (K3_N, True),
+    "k3_overflow": (K3_N + 9, True),
+}
+
+
+def _k3_case(case, dev):
+    live, shuffled = K3_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((K3_N, 16), generator=g, device=dev)
+    order = torch.randperm(K3_N, generator=g, device=dev)
+    if not shuffled:
+        order = torch.cat([order[order < live],
+                           torch.arange(live, K3_N, device=dev)])
+    total = torch.tensor(live, device=dev)
+    out = cuda_repack.repack_cols(x, order, total)
+    assert torch.equal(out, cuda_repack.repack_cols_torch(x, order, total))
+    assert torch.equal(out, cuda_repack.repack_cols(x, order, total))
+
+
+def _k2_case(case, dev):
+    """Synthetic tiles with empty ranges and ranges of 1, 31 ... 65, 127,
+    128, 129, 256, 257 and more rows (the kernel's batch and stage edges,
+    the plain walk's chunk edge), or an opaque wall that latches within
+    the first batch; two runs bit-equal.  Each case reaches all three of
+    the kernel's sum branches: (warp, row) pairs with a commit on several
+    lanes, on one lane and on none."""
+    attrs, ts, te = k2_edge_case(case.removeprefix("k2_"), dev)
+    work = blend_work(attrs, ts, te, EDGE_GRID_X)
+    assert work["warp_rows"] > work["warp_rows_single"] > 0
+    assert work["warp_rows_none"] > 0
+    state, _ = cuda_blend.blend_fwd(attrs, ts, te, EDGE_GRID_X)
+    g = torch.Generator(device=dev).manual_seed(3)
+    d_state = torch.randn(state.shape, generator=g, device=dev)
+    d_state[:, 6] = 0.0
+    args = (attrs, ts, te, state, d_state)
+    out = cuda_blend.blend_bwd(*args, EDGE_GRID_X)
+    rerun = cuda_blend.blend_bwd(*args, EDGE_GRID_X)
+    ref = torch_blend.blend_tiles_bwd_torch(*args, EDGE_GRID_X, 16, 128)
+    n = int(te.max())
+    assert ref[:n, :10].any()
+    scale = ref[:n, :10].abs().amax(dim=0)
+    assert ((out[:n, :10] - ref[:n, :10]).abs() <= 5e-4 * scale).all()
+    assert not out[:n, :10][~ref[:n, :10].any(dim=1)].any()
+    assert not out[n:].any() and not out[:, 10:].any()
+    assert torch.equal(out, rerun)
+
+
+def _scene_case(dev):
     params = _scene(2000, 1, dev)
     cam = _camera(dev)
     with torch.no_grad():
@@ -98,6 +153,7 @@ def test_kernels_match_their_plain_versions(dev):
     scale = ref[:n, :10].abs().amax(dim=0)
     assert ((out[:n, :10] - ref[:n, :10]).abs() <= 5e-4 * scale).all()
     assert not out[n:].any() and not out[:, 10:].any()
+    assert torch.equal(out, cuda_blend.blend_bwd(*args, W // 16))
     assert torch.equal(cuda_repack.repack_cols(out, pairs.order, pairs.total),
                        cuda_repack.repack_cols_torch(out, pairs.order, pairs.total))
 
@@ -111,6 +167,21 @@ def test_kernels_match_their_plain_versions(dev):
     gk, gp = grads("cuda"), grads("torch")
     for k in gk:
         assert ((gk[k] - gp[k]).abs() <= 5e-4 * gp[k].abs().max()).all(), k
+
+
+@pytest.mark.parametrize(
+    "case", ["scene", *K3_CASES, *(f"k2_{name}" for name in K2_EDGE_CASES)])
+def test_kernels_match_their_plain_versions(dev, case):
+    """K2 within 5e-4 of each channel's max on every live row, zero where
+    the plain version is zero and beyond, two runs bit-equal; K3 bit-equal;
+    on a rendered scene also the whole gradient of the cuda backend within
+    5e-4 of the group's max against the torch backend."""
+    if case == "scene":
+        _scene_case(dev)
+    elif case in K3_CASES:
+        _k3_case(case, dev)
+    else:
+        _k2_case(case, dev)
 
 
 def test_trainer_steps_on_the_card(dev):
