@@ -22,20 +22,28 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
 5. Serving times per call at that shape, two rounds of 20 calls after a
    warm-up, for preprocess, binning, K1 and the whole frame: device time
    (CUDA events) and host wall time; the plain blend's device time; the
-   frame's kernels by device time (torch.profiler); K1's work and bound.
+   frame's kernels by device time (torch.profiler); that no op of a frame
+   gathers the attribute table's 16-channel rows into a tensor of the pair
+   capacity (the profiler's shapes and memory; the same check must find
+   the plain version's copy); K1's work, its bound (the bytes of the rows
+   a tile walks before its last pixel is done, 44 used bytes and the
+   4-byte ``src`` entry each, and of the state, against the operations
+   on them) and the rows it stages; the peak device memory of a frame.
 6. K2 and K3 against their plain versions at llff frame 0, 512x512, with
    random cotangents from a seed: K2 at 20k Gaussians on every channel
    within 5e-4 of the channel's max |ref| on rows [0, num_pairs) and zero
    beyond; at 1M the same on >= 99.9% of rows (the latch, as in 4), with
    the relative L2 error per channel, and two runs of K2 on the same inputs
-   bit-equal; K3 bit-equal at 1M.  K2 on synthetic tiles whose ranges are
-   empty or 1, 31 ... 65, 127 ... 129, 256, 257 and more rows long (the
-   batch and stage edges) and on an opaque wall that latches in the first
-   batch; K3 on a shuffled permutation whose dead rows land in the middle
-   of slot order, with a live count of 0, below, at and above the row
-   count, bit-equal.  The binning VJP
-   (K3, float64 prefix sum, boundary gather) against a float64 index_add
-   at 1M, beside the same VJP with an fp32 prefix sum.  The whole
+   bit-equal; K3 bit-equal at 1M.  K1 and K2 on synthetic tiles whose
+   ranges are empty or 1, 31 ... 65, 127 ... 129, 256, 257 and more rows
+   long (the batch and stage edges) and on an opaque wall that latches in
+   the first batch, read through a table shuffled against the stream that
+   shares rows between tiles and holds decoy rows: K1's n_contrib
+   bit-equal and its state within 1e-5, K2 as above.  K3 on a shuffled
+   permutation whose dead rows land in the middle of slot order, with a
+   live count of 0, below, at and above the row count, bit-equal.  The
+   binning VJP (K3, float64 prefix sum, boundary gather) against a float64
+   index_add at 1M, beside the same VJP with an fp32 prefix sum.  The whole
    gradient, ``backend="cuda"`` against ``backend="torch"`` (the plain
    forward and backward through the same autograd Function), all six
    parameter groups within 5e-4 of the group's max, at 20k and 1M.
@@ -53,7 +61,8 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    wall ms, two rounds: the whole step, its forward, its backward, K2, the
    binning VJP with K3, K3, K3's library call, K2's zero fill alone, Adam,
    densify; the plain K2's time; a torch.profiler table of one step and the
-   device's busy share; K2's and K3's bounds; the tiles' range lengths, the
+   device's busy share; that no op of a step gathers the pair capacity's
+   16-channel rows; K2's and K3's bounds; the tiles' range lengths, the
    rows K2 walks and how many (warp, row) sums it takes; K2 on the longest
    tile alone; the peak device memory of a step.
 
@@ -93,20 +102,27 @@ FP32_FLOPS_PER_S = 67e12
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # K1 per evaluated (pair, pixel) product: dx, dy and power are 11 FLOPs;
 # where power <= 0 one exp and one multiply; a commit adds 1-alpha, T*(..),
-# w and five accumulations, 12 FLOPs.  Bytes per pair: the 11 channels read.
+# w and five accumulations, 12 FLOPs.  Bytes per walked row (a row before
+# its tile's last pixel is done; nothing after that reaches the output):
+# the 11 channels read and its src entry (the table row it reads).
 FLOPS_EVAL, FLOPS_EXP_PATH, FLOPS_COMMIT = 11, 1, 12
-BYTES_PER_PAIR = 11 * 4
+BYTES_PER_ROW = 11 * 4 + 4
+K1_BATCH = 64                      # rows K1 stages per batch
+K1_STAGED_ROW_BYTES = 3 * 16 + 4   # three 16-byte pieces and the src entry
 # K2 per committed product, beyond the forward's evaluation: 1-alpha,
 # test_T, w (3); q (8); the running prefix and suffix (3); dalpha (4, one
 # of them a divide, also one SFU reciprocal); dpower (1); the 10 gradient
 # terms (24); and one add into each of the 10 per-pair sums.
 FLOPS_K2_COMMIT = 3 + 8 + 3 + 4 + 1 + 24 + 10
-K2_READ_PER_PAIR = 11 * 4
-K2_WRITE_PER_PAIR = 10 * 4
+K2_READ_PER_ROW = 11 * 4 + 4       # per walked row, as K1
+K2_WRITE_PER_PAIR = 10 * 4         # per live pair
 K2_PIXEL_BYTES = (6 + 6) * 4       # 6 saved state and 6 cotangent rows
 K3_BYTES_READ = 10 * 4             # per live row
 K3_BYTES_ORDER = 8                 # per slot
 K3_BYTES_WRITE = 10 * 4            # per slot
+# ops that gather rows of a tensor into a new one
+GATHER_OPS = {"aten::index", "aten::index_select", "aten::gather",
+              "aten::take", "aten::take_along_dim", "aten::embedding"}
 
 
 class SmokeFailure(Exception):
@@ -116,6 +132,37 @@ class SmokeFailure(Exception):
 def check(ok: bool, msg: str):
     if not ok:
         raise SmokeFailure(msg)
+
+
+def row_copies(fn, pair_cap):
+    """The ops of one call of ``fn`` that gather the rows of a 16-channel
+    tensor into one of at least ``pair_cap`` rows, by the profiler's input
+    shapes and memory: the stream-order copy of the attribute table, which
+    the kernels do not need.  [(op, bytes it allocated)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True, profile_memory=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = []
+    for e in prof.events():
+        shapes = e.input_shapes or [[]]
+        made = max(e.device_memory_usage, e.cpu_memory_usage)
+        if (e.name in GATHER_OPS and len(shapes[0]) == 2 and shapes[0][1] == 16
+                and made >= pair_cap * 16 * 4):
+            found.append((e.name, made))
+    return found
+
+
+def peak_memory(fn):
+    """(peak, held before) device bytes over one call of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), base
 
 
 def make_scene(P, seed, device):
@@ -226,8 +273,9 @@ def serving(bg, dev):
     from luciddreamer_tpu_torch.app import LucidDreamerTPU
     from luciddreamer_tpu_torch.core.transforms import make_camera
     from luciddreamer_tpu_torch.model.ply import save_ply
-    from luciddreamer_tpu_torch.render import cuda_blend, torch_blend
-    from luciddreamer_tpu_torch.render.binning import build_tile_bins, num_tiles_for
+    from luciddreamer_tpu_torch.render import cuda_blend
+    from luciddreamer_tpu_torch.render.binning import (
+        build_tile_bins, num_tiles_for, pair_rows)
     from luciddreamer_tpu_torch.render.blend_cases import blend_work
     from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians
     from luciddreamer_tpu_torch.render.tiled import (
@@ -319,12 +367,14 @@ def serving(bg, dev):
             "preprocess": lambda: preprocess_gaussians(params, cam, 3),
             "binning": lambda: build_tile_bins(proc, H, W, 16, pair_cap),
             "k1": lambda: cuda_blend.blend_fwd(
-                bins.attrs, bins.tile_start, bins.tile_end, grid_x),
+                bins.table, bins.src, bins.tile_start, bins.tile_end, grid_x),
             "frame": lambda: render_tiled(params, cam, bg, chunk=128,
                                           backend="cuda"),
         }
-        plain = lambda: torch_blend.blend_tiles_torch(
-            bins.attrs, bins.tile_start, bins.tile_end, grid_x, 16, 128)
+        # the plain version of the same function of (table, src)
+        plain = lambda: cuda_blend.blend_fwd_torch(
+            pair_rows(bins.table, bins.src), bins.tile_start, bins.tile_end,
+            grid_x, 16, 128)
         # two rounds, the plain blend in between, to show the spread
         rounds = [{k: timed(f, 20) for k, f in phases.items()}]
         plain_ms, _ = timed(plain, 2)
@@ -339,24 +389,46 @@ def serving(bg, dev):
               f"{wall_ms:.4f} ms per frame (profiler on); by kernel:")
         for name, t in top:
             print(f"[profile]   {t:9.4f} ms  {name[:100]}")
-        work = blend_work(bins.attrs, bins.tile_start, bins.tile_end, grid_x)
+        copies = row_copies(phases["frame"], pair_cap)
+        plain_copies = row_copies(
+            lambda: pair_rows(bins.table, bins.src), pair_cap)
+        work = blend_work(bins.table, bins.src, bins.tile_start, bins.tile_end,
+                          grid_x)
+        peak, base = peak_memory(phases["frame"])
+    print(f"[profile] frame: ops gathering (>= {pair_cap}, 16) rows: "
+          f"{copies or 'none'}; in the plain version's pair_rows: {plain_copies}")
+    check(plain_copies, "the row-copy check does not see the plain version's copy")
+    check(not copies, "a frame gathers the attribute rows in stream order")
+    print(f"[time] frame peak device memory {peak / 2**30:.3f} GiB "
+          f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
+          "held before it)")
     n_eval, n_exp, n_commit = work["evaluated"], work["exps"], work["commits"]
     num_pairs = int(bins.num_pairs)
     nt = bins.tile_start.shape[0]
-    k1_bytes = num_pairs * BYTES_PER_PAIR + nt * (2 * 4 + 256 * 8 * 4)
+    lengths = (bins.tile_end - bins.tile_start).long()
+    walked = work["walked"]
+    k1_bytes = int(walked.sum()) * BYTES_PER_ROW + nt * (2 * 4 + 256 * 8 * 4)
+    # what K1 stages: the batch in which a tile's last pixel is done and
+    # the one after it, already in flight, or the whole range
+    staged = torch.minimum(lengths, K1_BATCH * (-(-walked // K1_BATCH) + 1))
+    k1_design_bytes = (int(staged.sum()) * K1_STAGED_ROW_BYTES
+                       + nt * (2 * 4 + 256 * 8 * 4))
     k1_flops = (n_eval * FLOPS_EVAL + n_exp * FLOPS_EXP_PATH
                 + n_commit * FLOPS_COMMIT)
     bound, bound_by, both = bound_of(k1_bytes, k1_flops, n_exp)
-    print(f"[time] K1 work: pairs {num_pairs} evaluated products {n_eval} "
-          f"exps {n_exp} commits {n_commit} flops {k1_flops} bytes {k1_bytes}")
+    print(f"[time] K1 work: pairs {num_pairs}, rows walked {int(walked.sum())}, "
+          f"evaluated products {n_eval} exps {n_exp} commits {n_commit} flops "
+          f"{k1_flops} bytes {k1_bytes}")
     print(f"[time] K1 bound: bytes {both['bytes']:.5f} ms, operations "
           f"{both['operations']:.5f} ms -> {bound_by}")
-    print(f"[time] serve peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[time] K1 stages {int(staged.sum())} rows ({int(walked.sum())} "
+          f"walked) of {num_pairs}: {k1_design_bytes} bytes with the state, "
+          f"{k1_design_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms at the peak rate")
     record = {
         "serve_launches": k1_launches, "max_abs_err": k1_err,
         "ms": min(r["k1"][0] for r in rounds), "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": bound_by,
+        "bound_ms": bound, "bound_by": bound_by, "bytes_bound_ms": both["bytes"],
+        "operations_bound_ms": both["operations"],
     }
     return app, cams, record
 
@@ -364,7 +436,8 @@ def serving(bg, dev):
 # ------------------------------------------------------- K2 / K3 / gradient
 
 def frame_inputs(params, cam, seed):
-    """Sorted pairs, K1's state and random cotangents at one frame."""
+    """Sorted pairs, the attribute table, K1's state and random cotangents
+    at one frame."""
     from luciddreamer_tpu_torch.render import binning, cuda_blend
     from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians
     from luciddreamer_tpu_torch.render.tiled import default_pair_capacity
@@ -373,33 +446,34 @@ def frame_inputs(params, cam, seed):
         proc = preprocess_gaussians(params, cam, 3)
         pair_cap = default_pair_capacity(params.capacity)
         pairs = binning.sort_pairs(proc, H, W, 16, pair_cap)
-        attrs = binning.gaussian_attr_table(proc)[pairs.src]
-        state, _ = cuda_blend.blend_fwd(attrs, pairs.tile_start,
+        table = binning.gaussian_attr_table(proc)
+        state, _ = cuda_blend.blend_fwd(table, pairs.src, pairs.tile_start,
                                         pairs.tile_end, W // 16)
-        g = torch.Generator(device=attrs.device).manual_seed(seed)
-        d_state = torch.randn(state.shape, generator=g, device=attrs.device)
+        g = torch.Generator(device=table.device).manual_seed(seed)
+        d_state = torch.randn(state.shape, generator=g, device=table.device)
         d_state[:, 6] = 0.0
-    return pairs, attrs, state, d_state
+    return pairs, table, state, d_state
 
 
-def k2_runs(attrs, tile_start, tile_end, state, d_state, grid_x):
+def k2_runs(table, src, tile_start, tile_end, state, d_state, grid_x):
     """K2 twice and the plain K2 on the same inputs: (out, rerun, ref)."""
-    from luciddreamer_tpu_torch.render import cuda_blend, torch_blend
+    from luciddreamer_tpu_torch.render import binning, cuda_blend, torch_blend
 
-    args = (attrs, tile_start, tile_end, state, d_state)
-    out = cuda_blend.blend_bwd(*args, grid_x)
-    rerun = cuda_blend.blend_bwd(*args, grid_x)
-    ref = torch_blend.blend_tiles_bwd_torch(*args, grid_x, 16, 128)
+    args = (tile_start, tile_end, state, d_state)
+    out = cuda_blend.blend_bwd(table, src, *args, grid_x)
+    rerun = cuda_blend.blend_bwd(table, src, *args, grid_x)
+    ref = torch_blend.blend_tiles_bwd_torch(binning.pair_rows(table, src),
+                                            *args, grid_x, 16, 128)
     torch.cuda.synchronize()
     return out, rerun, ref
 
 
 def check_k2(params, cam, tag, row_share):
-    """K2 against the plain K2; returns (pairs, attrs, state, d_state, K2's
-    output, max abs error)."""
-    pairs, attrs, state, d_state = frame_inputs(params, cam, seed=11)
-    out, rerun, ref = k2_runs(attrs, pairs.tile_start, pairs.tile_end, state,
-                              d_state, W // 16)
+    """K2 against the plain K2; returns (pairs, K2's output, max abs
+    error)."""
+    pairs, table, state, d_state = frame_inputs(params, cam, seed=11)
+    out, rerun, ref = k2_runs(table, pairs.src, pairs.tile_start,
+                              pairs.tile_end, state, d_state, W // 16)
     rerun_equal = torch.equal(out, rerun)
     del rerun
     n = int(pairs.total)
@@ -422,37 +496,42 @@ def check_k2(params, cam, tag, row_share):
     check(tail_zero, f"K2 left non-zero rows past num_pairs at {tag}")
     check(rows_ok >= row_share,
           f"K2 disagrees with the plain version at {tag}: {rows_ok:.6f} of rows")
-    del ref
-    return pairs, attrs, state, d_state, out, max_err
+    del ref, state, d_state, table
+    return pairs, out, max_err
 
 
-def k2_against_plain(attrs, tile_start, tile_end, grid_x, seed=3):
-    """K1's state on these tiles, a random cotangent, K2 twice and the plain
-    K2: (out, rerun, ref, live rows)."""
-    from luciddreamer_tpu_torch.render import cuda_blend
-
-    state, _ = cuda_blend.blend_fwd(attrs, tile_start, tile_end, grid_x)
-    g = torch.Generator(device=attrs.device).manual_seed(seed)
-    d_state = torch.randn(state.shape, generator=g, device=attrs.device)
-    d_state[:, 6] = 0.0
-    return (*k2_runs(attrs, tile_start, tile_end, state, d_state, grid_x),
-            int(tile_end.max()))
-
-
-def check_k2_edges(dev):
+def check_blend_edges(dev):
+    """K1 and K2 against their plain versions on the synthetic edge cases."""
+    from luciddreamer_tpu_torch.render import binning, cuda_blend
     from luciddreamer_tpu_torch.render.blend_cases import (
-        EDGE_GRID_X, K2_EDGE_CASES, blend_work, k2_edge_case)
+        EDGE_CASES, EDGE_GRID_X, blend_work, edge_case)
 
-    for name, (lengths, wall, _) in K2_EDGE_CASES.items():
-        attrs, ts, te = k2_edge_case(name, dev)
-        work = blend_work(attrs, ts, te, EDGE_GRID_X)
+    for name, (lengths, wall, _) in EDGE_CASES.items():
+        table, src, ts, te = edge_case(name, dev)
+        state, n_contrib = cuda_blend.blend_fwd(table, src, ts, te, EDGE_GRID_X)
+        ref_state, ref_nc = cuda_blend.blend_fwd_torch(
+            binning.pair_rows(table, src), ts, te, EDGE_GRID_X, 16, 128)
+        torch.cuda.synchronize()
+        nc_equal = torch.equal(n_contrib, ref_nc)
+        state_err = float((state - ref_state).abs().max())
+        print(f"[k1] edge case {name}: {table.shape[0]} table rows read "
+              f"through src; n_contrib bit-equal: {nc_equal} (max "
+              f"{int(ref_nc.max())}); max |d state| {state_err:.3e}")
+        check(nc_equal and state_err <= 1e-5,
+              f"K1 disagrees with the plain version on edge case {name}")
+        work = blend_work(table, src, ts, te, EDGE_GRID_X)
         multi = work["warp_rows"] - work["warp_rows_single"]
         print(f"[k2] edge case {name}: (warp, row) pairs with a commit on "
               f"several lanes {multi}, on one lane {work['warp_rows_single']}, "
               f"on none {work['warp_rows_none']}")
         check(min(multi, work["warp_rows_single"], work["warp_rows_none"]) > 0,
               f"edge case {name} does not reach all three of K2's sum branches")
-        out, rerun, ref, n = k2_against_plain(attrs, ts, te, EDGE_GRID_X)
+        g = torch.Generator(device=dev).manual_seed(3)
+        d_state = torch.randn(state.shape, generator=g, device=dev)
+        d_state[:, 6] = 0.0
+        out, rerun, ref = k2_runs(table, src, ts, te, state, d_state,
+                                  EDGE_GRID_X)
+        n = int(te.max())
         scale = ref[:n, :10].abs().amax(dim=0).clamp_min(1e-30)
         rel = ((out[:n, :10] - ref[:n, :10]).abs() / scale).amax(dim=0)
         nonzero = int(ref[:n, :10].any(dim=1).sum())
@@ -531,12 +610,13 @@ def whole_gradient(params, cam, tag):
           f"the CUDA gradient disagrees with the plain one at {tag}")
 
 
-def check_vjp(attrs, pairs, d_attrs):
-    """K3 bit-equal to its plain version; the gather VJP against float64."""
+def check_vjp(pairs, d_rows):
+    """K3 bit-equal to its plain version; the VJP of the row reads against
+    float64."""
     from luciddreamer_tpu_torch.render import binning, cuda_repack
 
-    cols = cuda_repack.repack_cols(d_attrs, pairs.order, pairs.total)
-    plain = cuda_repack.repack_cols_torch(d_attrs, pairs.order, pairs.total)
+    cols = cuda_repack.repack_cols(d_rows, pairs.order, pairs.total)
+    plain = cuda_repack.repack_cols_torch(d_rows, pairs.order, pairs.total)
     torch.cuda.synchronize()
     equal = torch.equal(cols, plain)
     k3_err = float((cols - plain).abs().max())
@@ -546,8 +626,8 @@ def check_vjp(attrs, pairs, d_attrs):
     n = int(pairs.total)
     rows = pairs.offsets_p1.shape[0]
     exact = torch.zeros((rows, 16), dtype=torch.float64, device="cuda")
-    exact.index_add_(0, pairs.src[:n], d_attrs[:n].double())
-    got = binning.gather_vjp(d_attrs, pairs.order, pairs.offsets_p1, pairs.total)
+    exact.index_add_(0, pairs.src[:n].long(), d_rows[:n].double())
+    got = binning.gather_vjp(d_rows, pairs.order, pairs.offsets_p1, pairs.total)
     cs = torch.cat([cols.new_zeros((10, 1)), torch.cumsum(cols, dim=1)], dim=1)
     csb = cs[:, pairs.offsets_p1.clamp(max=cols.shape[1])]
     fp32 = (csb[:, 1:] - csb[:, :-1]).t()
@@ -681,12 +761,13 @@ def training(app, cams, dev):
     alive_now = state.params.alive
     loss, leaves = forward()
     backward = lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
-    pairs, attrs, kstate, d_state = frame_inputs(state.params, cam, seed=12)
-    d_attrs = cuda_blend.blend_bwd(attrs, pairs.tile_start, pairs.tile_end,
-                                   kstate, d_state, W // 16)
-    lib_out = torch.empty((10, attrs.shape[0]), device=dev)
+    pairs, table, kstate, d_state = frame_inputs(state.params, cam, seed=12)
+    src = pairs.src
+    d_rows = cuda_blend.blend_bwd(table, src, pairs.tile_start,
+                                   pairs.tile_end, kstate, d_state, W // 16)
+    lib_out = torch.empty((10, d_rows.shape[0]), device=dev)
     # the zero fill that K2's launch function runs before its kernel, alone
-    fill_out = torch.empty_like(attrs)
+    fill_out = torch.empty_like(d_rows)
     fill = ctypes.CDLL(str(kernels.library_path("blend_bwd"))).blend_bwd_zero_fill
     fill.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     fill.restype = ctypes.c_int
@@ -704,14 +785,15 @@ def training(app, cams, dev):
         "forward": (forward, 5),
         "backward": (backward, 5),
         "k2": (lambda: cuda_blend.blend_bwd(
-            attrs, pairs.tile_start, pairs.tile_end, kstate, d_state, W // 16), 20),
+            table, src, pairs.tile_start, pairs.tile_end, kstate, d_state,
+            W // 16), 20),
         "k2_zero_fill": (zero_fill, 20),
         "binning_vjp": (lambda: binning.gather_vjp(
-            d_attrs, pairs.order, pairs.offsets_p1, pairs.total), 20),
-        "k3": (lambda: cuda_repack.repack_cols(d_attrs, pairs.order,
+            d_rows, pairs.order, pairs.offsets_p1, pairs.total), 20),
+        "k3": (lambda: cuda_repack.repack_cols(d_rows, pairs.order,
                                                pairs.total), 20),
         "k3_library": (lambda: lib_out.index_copy_(
-            1, pairs.order, d_attrs[:, :10].t()), 20),
+            1, pairs.order, d_rows[:, :10].t()), 20),
         "adam": (lambda: adam_update(pdict, grads, state.adam, lrs), 20),
         "densify": (lambda: gs.densify_and_prune(
             state.params, state.adam, state.stats, cfg.densify_grad_threshold,
@@ -725,10 +807,10 @@ def training(app, cams, dev):
                           for k, (d, w) in rounds[-1].items()))
         if r == 0:
             k2_plain_ms, _ = timed(lambda: torch_blend.blend_tiles_bwd_torch(
-                attrs, pairs.tile_start, pairs.tile_end, kstate, d_state,
-                W // 16, 16, 128), 1)
+                binning.pair_rows(table, src), pairs.tile_start,
+                pairs.tile_end, kstate, d_state, W // 16, 16, 128), 1)
             k3_plain_ms, _ = timed(lambda: cuda_repack.repack_cols_torch(
-                d_attrs, pairs.order, pairs.total), 5)
+                d_rows, pairs.order, pairs.total), 5)
     print(f"[time] plain K2 {k2_plain_ms:.4f} ms, plain K3 {k3_plain_ms:.4f} ms "
           "(device, per call)")
     for r, times in enumerate(rounds):
@@ -742,23 +824,22 @@ def training(app, cams, dev):
           f"{dev_ms / wall_ms:.4f}; by kernel:")
     for name, t in top:
         print(f"[profile]   {t:9.4f} ms  {name[:100]}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    step()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[time] training step peak device memory {peak / 2**30:.2f} GiB "
-          f"({(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB "
+    copies = row_copies(step, src.shape[0])
+    print(f"[profile] training step: ops gathering (>= {src.shape[0]}, 16) "
+          f"rows: {copies or 'none'}")
+    check(not copies, "a training step gathers the attribute rows in stream order")
+    peak, base = peak_memory(step)
+    print(f"[time] training step peak device memory {peak / 2**30:.3f} GiB "
+          f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
           "held before it)")
 
     # ---- bounds of K2 and K3 at this frame ----
     with torch.no_grad():
-        walk = blend_work(attrs, pairs.tile_start, pairs.tile_end, W // 16)
+        walk = blend_work(table, src, pairs.tile_start, pairs.tile_end, W // 16)
     n_eval, n_exp, n_commit = walk["evaluated"], walk["exps"], walk["commits"]
     n = int(pairs.total)
     nt = pairs.tile_start.shape[0]
-    cap = attrs.shape[0]
+    cap = src.shape[0]
 
     # ---- the tiles' ranges, what K2 walks of them, and the longest alone ----
     lengths = (pairs.tile_end - pairs.tile_start).double()
@@ -780,19 +861,19 @@ def training(app, cams, dev):
     one_start = torch.where(only, pairs.tile_start, zero)
     one_end = torch.where(only, pairs.tile_end, zero)
     one_ms, _ = timed(lambda: cuda_blend.blend_bwd(
-        attrs, one_start, one_end, kstate, d_state, W // 16), 20)
+        table, src, one_start, one_end, kstate, d_state, W // 16), 20)
     fill_ms = min(r["k2_zero_fill"][0] for r in rounds)
     print(f"[tiles] K2 with every range but tile {longest}'s emptied "
           f"({int(lengths[longest])} rows, {int(walked[longest])} walked): "
           f"{one_ms:.4f} ms with the zero fill, {one_ms - fill_ms:.4f} ms "
           "without (device, per call)")
-    k2_bytes = (n * (K2_READ_PER_PAIR + K2_WRITE_PER_PAIR)
+    k2_bytes = (int(walked.sum()) * K2_READ_PER_ROW + n * K2_WRITE_PER_PAIR
                 + nt * (2 * 4 + 256 * K2_PIXEL_BYTES))
     k2_flops = (n_eval * FLOPS_EVAL + n_exp * FLOPS_EXP_PATH
                 + n_commit * FLOPS_K2_COMMIT)
     k2_bound, k2_by, k2_both = bound_of(k2_bytes, k2_flops, n_exp + n_commit)
     k3_bytes = n * K3_BYTES_READ + cap * (K3_BYTES_ORDER + K3_BYTES_WRITE) + 8
-    k3_bound, k3_by, _ = bound_of(k3_bytes, 0, 0)
+    k3_bound, k3_by, k3_both = bound_of(k3_bytes, 0, 0)
     print(f"[time] K2 work: pairs {n} of {cap} slots, evaluated products "
           f"{n_eval}, exps {n_exp}, commits {n_commit}, flops {k2_flops}, "
           f"bytes {k2_bytes}; bound: bytes {k2_both['bytes']:.5f} ms, "
@@ -802,9 +883,13 @@ def training(app, cams, dev):
     return {
         "launches": launches,
         "blend_bwd": {"ms": best("k2"), "plain_ms": k2_plain_ms,
-                      "bound_ms": k2_bound, "bound_by": k2_by},
+                      "bound_ms": k2_bound, "bound_by": k2_by,
+                      "bytes_bound_ms": k2_both["bytes"],
+                      "operations_bound_ms": k2_both["operations"]},
         "repack_cols": {"ms": best("k3"), "plain_ms": k3_plain_ms,
                         "bound_ms": k3_bound, "bound_by": k3_by,
+                        "bytes_bound_ms": k3_both["bytes"],
+                        "operations_bound_ms": k3_both["operations"],
                         "library_ms": best("k3_library")},
     }
 
@@ -835,12 +920,12 @@ def main() -> int:
         check_k2(small, cams[0], "20k llff frame 0", 1.0)
         whole_gradient(small, cams[0], "20k llff frame 0")
         del small
-        check_k2_edges(dev)
+        check_blend_edges(dev)
         check_k3_edges(dev)
-        pairs, attrs, _, _, d_attrs, k2_err = check_k2(
+        pairs, d_rows, k2_err = check_k2(
             app.params, cams[0], "1M llff frame 0", 0.999)
-        k3_err = check_vjp(attrs, pairs, d_attrs)
-        del pairs, attrs, d_attrs
+        k3_err = check_vjp(pairs, d_rows)
+        del pairs, d_rows
         whole_gradient(app.params, cams[0], "1M llff frame 0")
 
         train = training(app, cams, dev)
@@ -856,7 +941,8 @@ def main() -> int:
          "launches": train["launches"]["blend_fwd"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1["bound_by"], "library_ms": None},
+         "bound_by": k1["bound_by"], "bytes_bound_ms": k1["bytes_bound_ms"],
+         "operations_bound_ms": k1["operations_bound_ms"], "library_ms": None},
         {"name": "blend_bwd", "route": "cuda", "source": source("blend_bwd"),
          "replaces": "luciddreamer_tpu/render/pallas_blend.py:215",
          "launches": train["launches"]["blend_bwd"], "max_abs_err": k2_err,

@@ -25,11 +25,13 @@
 // This is the front-to-back form of pallas_blend.py, not the back-to-front
 // T / (1 - alpha) unwind from n_contrib of the original CUDA rasterizer.
 //
-// What bounds it on the card: bytes by the published peaks (44 B read and 40 B
-// written per live pair, 48 B of saved state and cotangent per pixel), but
-// what it spends its time on is instruction throughput: the walk is sequential per
-// pixel, a tile is done after about a tenth of its rows, and at the 1M-
-// Gaussian frame about 4 in 10 of the (warp, row) pairs it walks have a
+// What bounds it on the card: bytes by the published peaks (44 B and a 4-byte
+// src entry read per row walked before the tile's last pixel is done, 40 B
+// written per live pair, 48 B of saved state and cotangent per pixel),
+// but what it spends its time on is instruction
+// throughput: the walk is sequential per pixel, a tile is done after about
+// a tenth of its rows, and at the 1M-Gaussian frame about a third of the
+// (warp, row) pairs it walks have a
 // commit, on more than half of the 32 lanes on average (PERF.md), so the
 // per-pair sums across threads are the rule and not the exception.  The
 // design spends as little as it can on them (PERF.md has the time of each
@@ -51,13 +53,14 @@
 //     the partials whose bit is set, in warp order, and writes the whole
 //     64-byte row as four 16-byte stores (columns 10-15 zero), so that both
 //     of its sectors are written in full.
-//   * Batch loads overlap the blend.  Two stages of 64 rows (48 of each
-//     row's 64 bytes: the 11 used channels) are filled with cp.async, 16
-//     bytes a thread, the next batch in flight while this one is blended; a
-//     row is then read back as three 16-byte broadcast loads.  cp.async and
-//     not TMA: a batch is 3 KB of 64-byte rows, of which a quarter is
-//     skipped; one bulk copy would need an mbarrier and a tensor map (or
-//     take the unused quarter too) to save one instruction per thread.
+//   * Batch loads overlap the blend.  Row i of the stream is table[src[i]],
+//     read through the pair sort's owner index as K1 reads it
+//     (pair_rows.cuh): two stages of 64 rows (48 of each row's 64 bytes:
+//     the 11 used channels) are filled with cp.async, the next batch's
+//     copies in flight and the src entries of the one after it loading
+//     while this one is blended; a row is then read back as three 16-byte
+//     broadcast loads.  cp.async and not TMA: the rows of a batch are
+//     scattered over the table, one 48-byte piece each.
 //   * A small footprint.  With batches of 64 rows the block holds 30.8 KB
 //     of shared memory, so that registers and not shared memory limit the
 //     blocks per SM (chip_smoke.py prints what ptxas's numbers imply).
@@ -66,25 +69,30 @@
 // fused multiply-adds (the build has -fmad=false for the commit arithmetic
 // anyway) and the exact reciprocal of 1 - alpha.
 //
-// Rows of a tile's range that the walk visited are written in full, zeros
-// where nothing committed.  Every other row (after a tile's latch, outside
-// every range, at or past num_pairs) is zero because the launcher zero-fills
-// the whole (pair_cap, 16) buffer first on the same stream; that fill is part
-// of K2's time, and blend_bwd_zero_fill is exported so that it can be timed on
-// its own.  Long tiles are not split: a split needs K1 to save the state at
+// The output stays in stream order, (pair_cap, 16): row i is the gradient
+// of table[src[i]], which binning's VJP (K3 and a prefix sum) sums per
+// Gaussian.  Rows of a tile's range that the walk visited are written in
+// full, zeros where nothing committed.  Every other row (after a tile's
+// latch, outside every range, at or past num_pairs) is zero because the
+// launcher zero-fills the whole (pair_cap, 16) buffer first on the same
+// stream; that fill is part of K2's time, and blend_bwd_zero_fill is
+// exported so that it can be timed on its own.  Long tiles are not split: a split needs K1 to save the state at
 // the split points.
 
 #include <cuda_runtime.h>
 
+#include "pair_rows.cuh"
+
 namespace {
+
+using pair_rows::kAttrDim;
+using pair_rows::kRowVec;
 
 constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;   // threads per block, one per pixel
 constexpr int kWarps = kPix / 32;
 constexpr int kBatch = 64;            // rows staged per batch, one mask bit each
 constexpr int kStages = 2;
-constexpr int kAttrDim = 16;
-constexpr int kRowVec = 3;            // 16-byte pieces staged per row
 constexpr int kStateRows = 7;         // T, r, g, b, depth, acc, done
 constexpr int kGradCh = 10;           // x y ca cb cc op r g b depth
 constexpr int kPartStride = 12;       // a partial row, padded to 16-byte pieces
@@ -94,20 +102,6 @@ constexpr float kTMin = 1.0e-4f;
 constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kBatch <= 64, "one 64-bit row mask per warp");
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(dst), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // The channel whose total the halving exchange leaves in this lane, or -1.
 // Bit 4 of the lane picks channels 0-4 or 5-9; bits 3, 2, 1 split those five
@@ -154,13 +148,15 @@ __device__ __forceinline__ void warp_sum_store(float (&v)[kGradCh], float* dst,
 }
 
 __global__ void __launch_bounds__(kPix)
-blend_bwd_kernel(const float* __restrict__ attrs,
+blend_bwd_kernel(const float* __restrict__ table,
+                 const int* __restrict__ src,
+                 int n_rows,
                  const int* __restrict__ tile_start,
                  const int* __restrict__ tile_end,
                  int grid_x,
                  const float* __restrict__ state,
                  const float* __restrict__ d_state,
-                 float* __restrict__ d_attrs) {
+                 float* __restrict__ d_rows) {
   __shared__ float4 s_rows[kStages][kBatch][kRowVec];
   __shared__ __align__(16) float s_part[kWarps][kBatch][kPartStride];
   __shared__ unsigned long long s_hit[kWarps];
@@ -180,19 +176,10 @@ blend_bwd_kernel(const float* __restrict__ attrs,
   const int end = tile_end[tile];
   const int num_batches = (end - start + kBatch - 1) / kBatch;
 
-  // stage batch b: rows [start + b * kBatch, ...) into s_rows[b & 1]
-  auto prefetch = [&](int b) {
-    const int base = start + b * kBatch;
-    const int pieces = min(kBatch, end - base) * kRowVec;
-    for (int c = p; c < pieces; c += kPix) {
-      const int row = c / kRowVec;
-      const int piece = c - row * kRowVec;
-      cp_async16(&s_rows[b & 1][row][piece],
-                 attrs + static_cast<size_t>(base + row) * kAttrDim + piece * 4);
-    }
-    cp_async_commit();
-  };
-  if (num_batches > 0) prefetch(0);
+  const pair_rows::Stager<kBatch, kPix> rows(table, src, n_rows, start, end, p);
+  int next = rows.row_of(0);   // src entries are loaded a batch ahead
+  if (num_batches > 0) rows.stage(s_rows[0], next);
+  next = rows.row_of(1);
 
   const size_t off =
       static_cast<size_t>(tile) * kStateRows * kPix + ty * kTile + tx;
@@ -218,9 +205,12 @@ blend_bwd_kernel(const float* __restrict__ attrs,
     // this thread's copies of batch b have landed; after the barrier,
     // everyone's have, the previous batch's finish is over and the other
     // stage is free.  The barrier is also the whole-tile early exit.
-    cp_async_wait_all();
+    pair_rows::cp_async_wait_all();
     if (__syncthreads_count(!done) == 0) break;
-    if (b + 1 < num_batches) prefetch(b + 1);
+    if (b + 1 < num_batches) {
+      rows.stage(s_rows[(b + 1) & 1], next);
+      next = rows.row_of(b + 2);
+    }
     const int base = start + b * kBatch;
     const int n = min(kBatch, end - base);
     const float4* cur = &s_rows[b & 1][0][0];   // row j of the stage
@@ -314,34 +304,37 @@ blend_bwd_kernel(const float* __restrict__ attrs,
         }
       }
       reinterpret_cast<float4*>(
-          d_attrs + static_cast<size_t>(base + row) * kAttrDim)[q] = sum;
+          d_rows + static_cast<size_t>(base + row) * kAttrDim)[q] = sum;
     }
   }
 }
 
 }  // namespace
 
-// Zero-fills d_attrs (pair_cap, 16) f32 on ``stream``; returns the error code.
-extern "C" int blend_bwd_zero_fill(float* d_attrs, long long pair_cap,
+// Zero-fills d_rows (pair_cap, 16) f32 on ``stream``; returns the error code.
+extern "C" int blend_bwd_zero_fill(float* d_rows, long long pair_cap,
                                    void* stream) {
   return static_cast<int>(cudaMemsetAsync(
-      d_attrs, 0, static_cast<size_t>(pair_cap) * kAttrDim * sizeof(float),
+      d_rows, 0, static_cast<size_t>(pair_cap) * kAttrDim * sizeof(float),
       static_cast<cudaStream_t>(stream)));
 }
 
-// attrs (pair_cap, 16) f32; tile_start/tile_end (num_tiles,) int32;
-// state and d_state (num_tiles, 7, 256) f32; d_attrs (pair_cap, 16) f32.
-// Zero-fills d_attrs and launches on ``stream``; returns cudaGetLastError().
-extern "C" int blend_bwd(const float* attrs, const int* tile_start,
-                         const int* tile_end, const float* state,
-                         const float* d_state, float* d_attrs,
-                         long long pair_cap, int num_tiles, int grid_x,
-                         void* stream) {
-  const int err = blend_bwd_zero_fill(d_attrs, pair_cap, stream);
+// table (n_rows, 16) f32; src (pair_cap,) int32, row i of the stream being
+// table[src[i]]; tile_start/tile_end (num_tiles,) int32; state and d_state
+// (num_tiles, 7, 256) f32; d_rows (pair_cap, 16) f32, the gradient of the
+// stream's rows.  Zero-fills d_rows and launches on ``stream``; returns
+// cudaGetLastError().
+extern "C" int blend_bwd(const float* table, const int* src,
+                         const int* tile_start, const int* tile_end,
+                         const float* state, const float* d_state,
+                         float* d_rows, int n_rows, long long pair_cap,
+                         int num_tiles, int grid_x, void* stream) {
+  const int err = blend_bwd_zero_fill(d_rows, pair_cap, stream);
   if (err != 0) return err;
   if (num_tiles > 0) {
     blend_bwd_kernel<<<num_tiles, kPix, 0, static_cast<cudaStream_t>(stream)>>>(
-        attrs, tile_start, tile_end, grid_x, state, d_state, d_attrs);
+        table, src, n_rows, tile_start, tile_end, grid_x, state, d_state,
+        d_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,32 +1,37 @@
 """Tile binning: (Gaussian, tile) pair expansion, the (tile, depth) sort,
-and the deterministic VJP of the attribute gather.
+and the deterministic VJP of the blend's attribute row reads.
 
 1. a dense depth rank in (depth bits, index) order: for positive floats the
    IEEE-754 bit order is the value order, and the index breaks ties;
 2. pair expansion into a fixed ``pair_cap`` buffer: each slot finds its
    owner Gaussian by binary search over the inclusive prefix sum of
    ``tiles_touched`` and its tile from the owner's rect;
-3. one stable sort of the int64 key ``tile * P + rank``, then one row
-   gather of the packed attribute table;
+3. one stable sort of the int64 key ``tile * P + rank``, which gives
+   ``src``, the row of the packed attribute table that each sorted pair
+   reads (the zero sentinel row P for the empty slots);
 4. per-tile ``[start, end)`` ranges by binary search over the sorted keys.
 
-The blend kernels walk each tile's range themselves, so no chunk/segment
-metadata is built.  Integers stay int32/int64 throughout.  ``overflow``
-reports a pair count above ``pair_cap``: the slots past the cap are dropped
-and the image is then invalid.
+No stream-order copy of the attribute rows is made: the blend kernels read
+row i of the stream as ``table[src[i]]`` themselves (``pair_rows`` builds
+the copy for the plain versions and the tests).  The blend kernels walk
+each tile's range themselves, so no chunk/segment metadata is built.
+Integers stay int32/int64 throughout.  ``overflow`` reports a pair count
+above ``pair_cap``: the slots past the cap are dropped and the image is
+then invalid.
 
-The gather's VJP is the counterpart of the custom VJP of
-``luciddreamer_tpu/render/binning.py::_expand_sort`` (no atomics, so the
-gradient is deterministic): kernel K3 (``cuda_repack``) takes the
-(pair_cap, 16) cotangent to 10 columns in slot order through the sort's
-permutation, zeroing rows at or past the pair count; one prefix sum along
-slots (in float64: over millions of slots an fp32 running sum loses the
-digits of the per-Gaussian differences); and one gather at the P+1
-exclusive offsets, whose adjacent differences are the per-Gaussian sums
-(a Gaussian's slots are contiguous).  The prefix sum is taken in two
-levels, within blocks of 1024 slots and then over the block totals: one
-scan along each of the 10 columns of millions of slots leaves most of the
-card idle (PERF.md has the times).
+The VJP of that row read, ``gather_vjp``, is the counterpart of the custom
+VJP of ``luciddreamer_tpu/render/binning.py::_expand_sort`` (no atomics, so
+the gradient is deterministic); the blend's backward calls it.  Kernel K3
+(``cuda_repack``) takes the (pair_cap, 16) cotangent of the rows to 10
+columns in slot order through the sort's permutation, zeroing rows at or
+past the pair count; one prefix sum along slots (in float64: over millions
+of slots an fp32 running sum loses the digits of the per-Gaussian
+differences); and one gather at the P+1 exclusive offsets, whose adjacent
+differences are the per-Gaussian sums (a Gaussian's slots are
+contiguous).  The prefix sum is taken in two levels, within blocks of 1024
+slots and then over the block totals: one scan along each of the 10
+columns of millions of slots leaves most of the card idle (PERF.md has the
+times).
 """
 from __future__ import annotations
 
@@ -42,9 +47,13 @@ A_X, A_Y, A_CA, A_CB, A_CC, A_OP, A_R, A_G, A_B, A_DEPTH, A_VALID = range(11)
 
 
 class TileBins(NamedTuple):
-    """Depth-sorted pair stream and per-tile ranges."""
+    """The depth-sorted pair stream, as table rows read through ``src``, and
+    per-tile ranges."""
 
-    attrs: torch.Tensor       # (pair_cap, ATTR_DIM) f32, (tile, depth)-sorted
+    table: torch.Tensor       # (P+1, ATTR_DIM) f32 attributes, differentiable
+    src: torch.Tensor         # (pair_cap,) int32 table row of each sorted pair
+    order: torch.Tensor       # (pair_cap,) int64 slot of each sorted pair
+    offsets_p1: torch.Tensor  # (P+1,) int64 exclusive slot offsets, then total
     tile_start: torch.Tensor  # (num_tiles,) int32 first row of each tile
     tile_end: torch.Tensor    # (num_tiles,) int32 one past its last row
     num_pairs: torch.Tensor   # () int64 true pair count
@@ -76,9 +85,9 @@ def gaussian_attr_table(proc: ProcessedGaussians) -> torch.Tensor:
 
 
 class PairOrder(NamedTuple):
-    """The pair sort of one frame: what the gather and its VJP need."""
+    """The pair sort of one frame: what the row reads and their VJP need."""
 
-    src: torch.Tensor         # (pair_cap,) int64 table row of each sorted pair
+    src: torch.Tensor         # (pair_cap,) int32 table row of each sorted pair
     order: torch.Tensor       # (pair_cap,) int64 slot of each sorted pair
     tile_start: torch.Tensor  # (num_tiles,) int32
     tile_end: torch.Tensor    # (num_tiles,) int32
@@ -99,6 +108,8 @@ def sort_pairs(
     grid_x, grid_y = num_tiles_for(height, width, tile_size)
     num_tiles = grid_x * grid_y
     P = proc.depth.shape[0]
+    if P + 1 >= 2**31:
+        raise ValueError(f"{P} Gaussians: the table's row index must fit int32")
     dev = proc.depth.device
 
     counts = proc.tiles_touched.to(torch.int64)
@@ -128,7 +139,7 @@ def sort_pairs(
     # one stable sort: (tile, rank) order; empty slots share the key
     # num_tiles * P and stay at the end, in slot order
     key_s, order = torch.sort(key, stable=True)
-    src = torch.where(valid, g, P)[order]
+    src = torch.where(valid, g, P)[order].to(torch.int32).contiguous()
     bounds = torch.arange(num_tiles + 1, device=dev) * P
     edges = torch.searchsorted(key_s, bounds).to(torch.int32)
     return PairOrder(
@@ -170,20 +181,11 @@ def gather_vjp(d_attrs: torch.Tensor, order: torch.Tensor,
     return d_table
 
 
-class _PairGather(torch.autograd.Function):
-    """(pair_cap, ATTR_DIM) sorted rows ``table[src]`` of the (P+1,
-    ATTR_DIM) table, with the VJP ``gather_vjp`` (no atomics)."""
-
-    @staticmethod
-    def forward(ctx, table, src, order, offsets_p1, total):
-        ctx.save_for_backward(order, offsets_p1, total)
-        return table[src]
-
-    @staticmethod
-    def backward(ctx, d_attrs):
-        order, offsets_p1, total = ctx.saved_tensors
-        d_table = gather_vjp(d_attrs.contiguous(), order, offsets_p1, total)
-        return d_table, None, None, None, None
+def pair_rows(table: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The (pair_cap, ATTR_DIM) stream-order rows ``table[src]`` (of a
+    ``TileBins``), for the plain blend versions and the tests; the CUDA
+    path never builds them."""
+    return table[src]
 
 
 def build_tile_bins(
@@ -193,11 +195,14 @@ def build_tile_bins(
     tile_size: int,
     pair_cap: int,
 ) -> TileBins:
-    """Gradients flow only through the final attribute gather."""
+    """Gradients flow only through ``table``, whose rows the blend reads
+    through ``src``."""
     pairs = sort_pairs(proc, height, width, tile_size, pair_cap)
     return TileBins(
-        attrs=_PairGather.apply(gaussian_attr_table(proc), pairs.src,
-                                pairs.order, pairs.offsets_p1, pairs.total),
+        table=gaussian_attr_table(proc),
+        src=pairs.src,
+        order=pairs.order,
+        offsets_p1=pairs.offsets_p1,
         tile_start=pairs.tile_start,
         tile_end=pairs.tile_end,
         num_pairs=pairs.total,

@@ -3,11 +3,11 @@
 Every kernel lives in ``csrc/<name>.cu`` with a plain C interface: one
 launch function ``<name>(...)`` that enqueues the kernel's passes on the
 stream it is given and returns ``cudaGetLastError()``, and
-``kernel_error_string``.
-At first use the source is compiled by ``nvcc`` for ``sm_90a`` into
-``build/kernels/`` at the root of the checkout, keyed by a hash of the
-source and the flags; ptxas's register, spill and shared-memory report is
-kept beside the library as ``.log``.  The library is loaded with ``ctypes``.
+``kernel_error_string``; device code that several kernels share lives in
+``csrc/*.cuh`` headers.  At first use the source is compiled by ``nvcc``
+for ``sm_90a`` into ``build/kernels/`` at the root of the checkout, keyed
+by a hash of the source, the headers and the flags; ptxas's register, spill
+and shared-memory report is kept beside the library as ``.log``.  The library is loaded with ``ctypes``.
 A failed build or a launch that returns an error raises.
 """
 from __future__ import annotations
@@ -37,9 +37,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(f.read_bytes() for f in sources) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{digest}.so"
 

@@ -2,13 +2,15 @@
 
 Differentiable end to end.  Backends:
   * ``cuda``  - the hand-written blend kernels K1 (forward) and K2
-                (backward) of render.cuda_blend; for tensors on the CPU
-                the same autograd Function runs their plain versions;
+                (backward) of render.cuda_blend, which read the sorted
+                pairs' attribute rows through the sort's owner index; for
+                tensors on the CPU the same autograd Function runs their
+                plain versions;
   * ``torch`` - the plain PyTorch forward and backward blend
                 (render.torch_blend) on any device, through the same
                 Function.
-The binning gather's VJP (render.binning) launches K3 on CUDA tensors
-under either backend.
+The VJP of the row reads (render.binning.gather_vjp) launches K3 on CUDA
+tensors under either backend.
 """
 from __future__ import annotations
 
@@ -63,8 +65,7 @@ def render_tiled(
         mean2d_offset=mean2d_offset,
     )
     bins = build_tile_bins(proc, H, W, tile_size, pair_cap)
-    carry = cuda_blend.blend_tiles(bins.attrs, bins.tile_start, bins.tile_end,
-                                   grid_x, tile_size, chunk,
+    carry = cuda_blend.blend_tiles(bins, grid_x, tile_size, chunk,
                                    plain=backend == "torch")
     rgb, depth = blend_math.finalize(carry, bg)
 

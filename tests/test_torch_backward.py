@@ -146,19 +146,30 @@ def test_plain_k2_long_ranges_match_jax_bwd_call(rng, P, opaque):
         assert bool(fwd.done.all()) and min(len(a) for a in after) > 128
 
 
-@pytest.mark.parametrize("case", list(blend_cases.K2_EDGE_CASES))
+@pytest.mark.parametrize("case", list(blend_cases.EDGE_CASES))
 def test_k2_edge_cases_reach_every_sum_branch(case):
-    """The synthetic pair streams that the CUDA backward is held against on
-    the card: each has (warp, row) pairs with a commit on several lanes, on
-    one lane and on none (the kernel's three sum branches), the wall
-    latches every tile within 32 rows, and the plain backward on them keeps
-    its contract: a gradient on committed rows, zeros after a tile's last
-    walked row, in the dead tail and in columns 10-15."""
-    attrs, ts, te = blend_cases.k2_edge_case(case, "cpu")
+    """The synthetic pair streams that the CUDA forward and backward are
+    held against on the card: each has (warp, row) pairs with a commit on
+    several lanes, on one lane and on none (K2's three sum branches), the
+    wall latches every tile within 32 rows, and the plain backward on them
+    keeps its contract: a gradient on committed rows, zeros after a tile's
+    last walked row, in the dead tail and in columns 10-15."""
+    table, src, ts, te = blend_cases.edge_case(case, "cpu")
+    attrs = binning.pair_rows(table, src)
     gx = blend_cases.EDGE_GRID_X
-    lengths, wall, _ = blend_cases.K2_EDGE_CASES[case]
-    assert (te - ts).tolist() == list(lengths) and attrs.shape[0] > int(te.max())
-    work = blend_cases.blend_work(attrs, ts, te, gx)
+    lengths, wall, _ = blend_cases.EDGE_CASES[case]
+    assert (te - ts).tolist() == list(lengths) and src.shape[0] > int(te.max())
+    # the table is laid out so that an indexing fault shows: shuffled
+    # against the stream, rows read by two tiles, decoys no slot reads, and
+    # the empty slots on the zero sentinel
+    n = int(te.max())
+    tile_of = torch.repeat_interleave(torch.arange(len(lengths)), te - ts)
+    read = torch.unique(src[:n])
+    assert not torch.equal(src[:n].long(), torch.arange(n))
+    assert len(torch.unique(src[:n].long() * 16 + tile_of)) > len(read) > n // 2
+    assert len(read) + blend_cases.DECOY_ROWS + 1 == table.shape[0]
+    assert (src[n:] == table.shape[0] - 1).all() and not table[-1].any()
+    work = blend_cases.blend_work(table, src, ts, te, gx)
     assert work["warp_rows"] > work["warp_rows_single"] > 0
     assert work["warp_rows_none"] > 0
     assert work["commits"] > 0 and work["evaluated"] >= work["exps"] >= work["commits"]
@@ -174,7 +185,6 @@ def test_k2_edge_cases_reach_every_sum_branch(case):
     d_state[:, 6] = 0.0
     out = torch_blend.blend_tiles_bwd_torch(attrs, ts, te, state, d_state, gx,
                                             TILE, 128)
-    n = int(te.max())
     assert int(out[:n, :10].any(dim=1).sum()) > 0.3 * int(walked.sum())
     for s0, w, e in zip(ts.tolist(), walked.tolist(), te.tolist()):
         assert not out[s0 + w:e].any()
@@ -182,27 +192,45 @@ def test_k2_edge_cases_reach_every_sum_branch(case):
 
 
 def test_plain_k2_matches_autograd_of_plain_blend(rng):
+    """The plain K2 against autograd of the plain forward on the stream's
+    rows; and the blend's autograd Function, which reads the rows through
+    ``src``, gives the table the gradient ``gather_vjp`` makes of them."""
     jp = make_random_gaussians(80, rng, scale_range=(-3.0, -1.0))
     params, cam = port_params(jp), port_camera(make_test_camera(48, 32))
     with torch.no_grad():
         bins = binning.build_tile_bins(tpre(params, cam, 3), 32, 48, TILE, 4096)
-    attrs = bins.attrs.clone().requires_grad_()
+    rows = binning.pair_rows(bins.table, bins.src)
+    attrs = rows.clone().requires_grad_()
     c = torch_blend.blend_tiles_torch(attrs, bins.tile_start, bins.tile_end,
                                       3, TILE, 16)
     g = torch.as_tensor(rng.normal(size=(6,) + tuple(c.T.shape)),
                         dtype=torch.float32)
     fields = [c.T, c.rgb[:, 0], c.rgb[:, 1], c.rgb[:, 2], c.depth, c.acc]
     sum(torch.sum(f * gi) for f, gi in zip(fields, g)).backward()
-    state, _ = cuda_blend.blend_fwd_torch(bins.attrs, bins.tile_start,
+    state, _ = cuda_blend.blend_fwd_torch(rows, bins.tile_start,
                                           bins.tile_end, 3, TILE, 16)
     d_state = torch.zeros_like(state)
     d_state[:, :6] = g.transpose(0, 1)
     out = torch_blend.blend_tiles_bwd_torch(
-        bins.attrs, bins.tile_start, bins.tile_end, state, d_state, 3, TILE, 16)
+        rows, bins.tile_start, bins.tile_end, state, d_state, 3, TILE, 16)
     n = int(bins.num_pairs)
     for ch in range(10):
         assert_scaled_close(out[:n, ch], attrs.grad[:n, ch], 1e-5,
                             err_msg=f"channel {ch}")
+
+    table = bins.table.clone().requires_grad_()
+    c2 = cuda_blend.blend_tiles(bins._replace(table=table), 3, TILE, 16)
+    for k in ("T", "depth", "acc", "n_contrib"):
+        np.testing.assert_array_equal(np_(getattr(c2, k)), np_(getattr(c, k)),
+                                      err_msg=k)
+    fields2 = [c2.T, c2.rgb[:, 0], c2.rgb[:, 1], c2.rgb[:, 2], c2.depth, c2.acc]
+    sum(torch.sum(f * gi) for f, gi in zip(fields2, g)).backward()
+    ref = binning.gather_vjp(attrs.grad, bins.order, bins.offsets_p1,
+                             bins.num_pairs)
+    for ch in range(10):
+        assert_scaled_close(table.grad[:, ch], ref[:, ch], 1e-5,
+                            err_msg=f"table channel {ch}")
+    assert not np_(table.grad)[:, 10:].any() and not np_(table.grad)[-1].any()
 
 
 def _render_loss_weights(rng, W, H):
@@ -218,7 +246,7 @@ def _loss(out, wr, wd, lib):
 
 
 @pytest.mark.parametrize("jax_backend,case", [
-    ("pallas", "blob"), ("xla", "blob"), ("xla", "wall"),
+    ("pallas", "blob"), ("xla", "blob"), ("xla", "wall"), ("pallas", "wall"),
 ])
 def test_render_tiled_gradients_match_jax(rng, jax_backend, case):
     jp, deg, chunk = _scene(rng, case)
@@ -254,9 +282,9 @@ FIELDS = ("mean2d", "conic", "opacity", "rgb", "depth")
 
 @pytest.mark.parametrize("pair_cap", [4096, 64])
 def test_gather_vjp_matches_jax_expand_sort(rng, pair_cap):
-    """The port's gather VJP (plain K3, prefix sum, boundary gather) against
-    the custom VJP of the JAX binning and against autograd of the plain
-    row index; pair_cap 64 overflows."""
+    """The port's VJP of the row reads ``table[src]`` (plain K3, prefix
+    sum, boundary gather) against the custom VJP of the JAX binning and
+    against autograd of the plain row index; pair_cap 64 overflows."""
     jp = make_random_gaussians(100, rng, scale_range=(-3.0, -1.0))
     W, H, chunk = 48, 32, 16
     jcam = make_test_camera(W, H)
@@ -277,8 +305,11 @@ def test_gather_vjp_matches_jax_expand_sort(rng, pair_cap):
     proc = dataclasses.replace(tproc, **leaves)
     bins = binning.build_tile_bins(proc, H, W, TILE, cap)
     assert bool(bins.overflow) == (pair_cap == 64)
-    np.testing.assert_allclose(np_(bins.attrs), np_(j_out), rtol=1e-5, atol=1e-5)
-    bins.attrs.backward(torch.as_tensor(d))
+    np.testing.assert_allclose(np_(binning.pair_rows(bins.table, bins.src)),
+                               np_(j_out), rtol=1e-5, atol=1e-5)
+    d_table = binning.gather_vjp(torch.as_tensor(d), bins.order,
+                                 bins.offsets_p1, bins.num_pairs)
+    bins.table.backward(d_table)
 
     # the plain row index under autograd: atomics-free only on the CPU
     leaves2 = {k: getattr(tproc, k).clone().requires_grad_() for k in FIELDS}
@@ -369,6 +400,28 @@ def test_render_dense_matches_jax(rng):
     for name in GROUPS:
         assert_scaled_close(getattr(params, PORT_NAMES[name]).grad, jg[name],
                             5e-4, err_msg=name)
+
+
+def test_blend_wrappers_refuse_what_the_kernels_do_not_take():
+    """K1's and K2's wrappers raise on a ``src`` that is not a contiguous
+    int32 vector on the table's device, a table that is not (N, 16)
+    float32, or a state of the wrong shape, before anything is launched."""
+    table = torch.zeros((5, 16))
+    src = torch.zeros(8, dtype=torch.int32)
+    ts = te = torch.zeros(4, dtype=torch.int32)
+    state = torch.zeros((4, 7, 256))
+    bad = [
+        (table, src.long(), ts, te), (table, src.view(2, 4), ts, te),
+        (table, src[::2], ts, te), (table[:, :11], src, ts, te),
+        (table.double(), src, ts, te), (table, src, ts.long(), te),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            cuda_blend.blend_fwd(*args, 2)
+        with pytest.raises(ValueError):
+            cuda_blend.blend_bwd(*args, state, state, 2)
+    with pytest.raises(ValueError, match="state"):
+        cuda_blend.blend_bwd(table, src, ts, te, state[:, :6], state, 2)
 
 
 def test_failed_kernel_build_raises(monkeypatch, tmp_path):

@@ -2,8 +2,10 @@
 ``luciddreamer_tpu_torch`` against ``luciddreamer_tpu`` (CPU).
 
 The pair stream must come out in exactly the JAX package's (tile, depth
-rank) order: sorted attribute rows allclose and per-tile ranges equal.  The
-JAX side keeps its ranges in segment metadata; the test derives them.
+rank) order: sorted attribute rows (the port's ``table[src]``) allclose,
+each sorted pair's table row ``src`` the owner Gaussian that JAX's
+expansion gives it, and per-tile ranges equal.  The JAX side keeps its
+ranges in segment metadata; the test derives them.
 """
 import numpy as np
 import jax
@@ -16,6 +18,7 @@ from luciddreamer_tpu.render.binning import build_tile_bins as jbins
 from luciddreamer_tpu.render.preprocess import preprocess_gaussians as jpre
 from luciddreamer_tpu_torch.render import blend_math as tbm
 from luciddreamer_tpu_torch.render.binning import build_tile_bins as tbins
+from luciddreamer_tpu_torch.render.binning import pair_rows
 from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians as tpre
 from tests.helpers import make_random_gaussians, make_test_camera
 from tests.port_helpers import jax_tile_ranges, np_, port_camera, port_params
@@ -47,9 +50,10 @@ def test_tile_bins_match(rng, case):
     total = int(jb.num_pairs)
     assert total > 100 and not bool(jb.overflow)
     assert int(tb.num_pairs) == total and not bool(tb.overflow)
-    np.testing.assert_allclose(np_(tb.attrs)[:total], np_(jb.attrs)[:total],
+    rows = np_(pair_rows(tb.table, tb.src))
+    np.testing.assert_allclose(rows[:total], np_(jb.attrs)[:total],
                                rtol=1e-5, atol=1e-5)
-    assert not np_(tb.attrs)[total:].any()
+    assert not rows[total:].any()
     start, end = jax_tile_ranges(jb, (W // TILE) * (H // TILE), chunk)
     np.testing.assert_array_equal(np_(tb.tile_start), start)
     np.testing.assert_array_equal(np_(tb.tile_end), end)
@@ -61,10 +65,38 @@ def test_tile_bins_overflow_matches(rng):
     assert bool(jb.overflow) and bool(tb.overflow)
     assert int(tb.num_pairs) == int(jb.num_pairs) > 64
     # the first pair_cap slots survive, in the same order
-    np.testing.assert_allclose(np_(tb.attrs), np_(jb.attrs), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np_(pair_rows(tb.table, tb.src)), np_(jb.attrs),
+                               rtol=1e-5, atol=1e-5)
     start, end = jax_tile_ranges(jb, 4, 16)
     np.testing.assert_array_equal(np_(tb.tile_start), start)
     np.testing.assert_array_equal(np_(tb.tile_end), end)
+
+
+@pytest.mark.parametrize("case", ["blob", "overflow"])
+def test_src_is_the_owner_jax_expands(rng, case):
+    """``src`` is contiguous int32; each live sorted pair's entry is the
+    Gaussian that JAX's expansion places in that sorted row (read back from
+    JAX's sorted rows with each Gaussian's index as its opacity), and each
+    empty slot's is the sentinel row P."""
+    P, W, H = 150, 48, 32
+    jp = make_random_gaussians(P, rng, scale_range=(-3.5, -1.0))
+    pair_cap, chunk = (4096, 32) if case == "blob" else (64, 16)
+    jcam = make_test_camera(W, H)
+    jproc = jax.jit(lambda p: jpre(p, jcam, 3))(jp)
+    tagged = jproc.replace(opacity=jnp.arange(P, dtype=jnp.float32))
+    jb = jax.jit(lambda q: jbins(q, H, W, TILE, pair_cap, chunk))(tagged)
+    with torch.no_grad():
+        tb = tbins(tpre(port_params(jp), port_camera(jcam), 3), H, W, TILE,
+                   pair_cap)
+    src = tb.src
+    assert src.dtype == torch.int32 and src.is_contiguous()
+    assert src.shape == (jb.attrs.shape[0],) and tb.table.shape == (P + 1, 16)
+    total = int(tb.num_pairs)
+    live = min(total, src.shape[0])
+    assert bool(tb.overflow) == (case == "overflow") and live > 50
+    owner = np.asarray(jb.attrs)[:live, 5]
+    np.testing.assert_array_equal(np_(src)[:live], owner.astype(np.int32))
+    assert (np_(src)[live:] == P).all()
 
 
 def _carry_pair(rng, n):

@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels K1, K2 and K3
 on the card against their plain PyTorch versions, the CUDA path with no
-fallback, and a few training steps on the card.
+fallback and no stream-order copy of the attribute rows, and a few
+training steps on the card.
 
 They carry the ``cuda`` marker and skip where there is no CUDA device.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -21,7 +22,7 @@ from luciddreamer_tpu_torch.render import (
     binning, cuda_blend, cuda_repack, torch_blend,
 )
 from luciddreamer_tpu_torch.render.blend_cases import (
-    EDGE_GRID_X, K2_EDGE_CASES, blend_work, k2_edge_case,
+    EDGE_CASES, EDGE_GRID_X, blend_work, edge_case,
 )
 from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians
 from luciddreamer_tpu_torch.render.tiled import render_tiled
@@ -58,13 +59,15 @@ def _camera(dev):
 
 def test_cuda_backward_launches_the_kernels(monkeypatch, dev):
     """On CUDA tensors the render's forward and backward go through K1, K2
-    and K3, never through their plain versions."""
+    and K3, never through their plain versions, and no stream-order copy
+    of the attribute rows is built."""
     def refuse(*a, **k):
         raise AssertionError("a plain version ran on the CUDA path")
 
     for mod, name in ((torch_blend, "blend_tiles_torch"),
                       (torch_blend, "blend_tiles_bwd_torch"),
-                      (cuda_repack, "repack_cols_torch")):
+                      (cuda_repack, "repack_cols_torch"),
+                      (binning, "pair_rows")):
         monkeypatch.setattr(mod, name, refuse)
     params = _scene(300, 0, dev)
     before = (cuda_blend.blend_fwd.launches, cuda_blend.blend_bwd.launches,
@@ -106,25 +109,40 @@ def _k3_case(case, dev):
     assert torch.equal(out, cuda_repack.repack_cols(x, order, total))
 
 
+def _k1_case(case, dev):
+    """K1 on the synthetic tiles (ranges around every batch edge, or an
+    opaque wall), whose table is shuffled against the stream, shares rows
+    between tiles and holds decoy rows: n_contrib bit-equal to the plain
+    version, the state within 1e-5."""
+    table, src, ts, te = edge_case(case.removeprefix("k1_"), dev)
+    state, n_contrib = cuda_blend.blend_fwd(table, src, ts, te, EDGE_GRID_X)
+    ref_state, ref_nc = cuda_blend.blend_fwd_torch(
+        binning.pair_rows(table, src), ts, te, EDGE_GRID_X, 16, 128)
+    assert int(ref_nc.max()) > 0
+    assert torch.equal(n_contrib, ref_nc)
+    assert ((state - ref_state).abs() <= 1e-5).all()
+
+
 def _k2_case(case, dev):
     """Synthetic tiles with empty ranges and ranges of 1, 31 ... 65, 127,
-    128, 129, 256, 257 and more rows (the kernel's batch and stage edges,
+    128, 129, 256, 257 and more rows (the kernels' batch and stage edges,
     the plain walk's chunk edge), or an opaque wall that latches within
     the first batch; two runs bit-equal.  Each case reaches all three of
     the kernel's sum branches: (warp, row) pairs with a commit on several
     lanes, on one lane and on none."""
-    attrs, ts, te = k2_edge_case(case.removeprefix("k2_"), dev)
-    work = blend_work(attrs, ts, te, EDGE_GRID_X)
+    table, src, ts, te = edge_case(case.removeprefix("k2_"), dev)
+    work = blend_work(table, src, ts, te, EDGE_GRID_X)
     assert work["warp_rows"] > work["warp_rows_single"] > 0
     assert work["warp_rows_none"] > 0
-    state, _ = cuda_blend.blend_fwd(attrs, ts, te, EDGE_GRID_X)
+    state, _ = cuda_blend.blend_fwd(table, src, ts, te, EDGE_GRID_X)
     g = torch.Generator(device=dev).manual_seed(3)
     d_state = torch.randn(state.shape, generator=g, device=dev)
     d_state[:, 6] = 0.0
-    args = (attrs, ts, te, state, d_state)
-    out = cuda_blend.blend_bwd(*args, EDGE_GRID_X)
-    rerun = cuda_blend.blend_bwd(*args, EDGE_GRID_X)
-    ref = torch_blend.blend_tiles_bwd_torch(*args, EDGE_GRID_X, 16, 128)
+    args = (ts, te, state, d_state)
+    out = cuda_blend.blend_bwd(table, src, *args, EDGE_GRID_X)
+    rerun = cuda_blend.blend_bwd(table, src, *args, EDGE_GRID_X)
+    ref = torch_blend.blend_tiles_bwd_torch(binning.pair_rows(table, src),
+                                            *args, EDGE_GRID_X, 16, 128)
     n = int(te.max())
     assert ref[:n, :10].any()
     scale = ref[:n, :10].abs().amax(dim=0)
@@ -140,20 +158,27 @@ def _scene_case(dev):
     with torch.no_grad():
         proc = preprocess_gaussians(params, cam, 3)
         pairs = binning.sort_pairs(proc, H, W, 16, 16384)
-        attrs = binning.gaussian_attr_table(proc)[pairs.src]
-        state, _ = cuda_blend.blend_fwd(attrs, pairs.tile_start,
-                                        pairs.tile_end, W // 16)
+        table = binning.gaussian_attr_table(proc)
+        state, n_contrib = cuda_blend.blend_fwd(table, pairs.src,
+                                                pairs.tile_start,
+                                                pairs.tile_end, W // 16)
+        rows = binning.pair_rows(table, pairs.src)
+        ref_state, ref_nc = cuda_blend.blend_fwd_torch(
+            rows, pairs.tile_start, pairs.tile_end, W // 16, 16, 128)
+        assert torch.equal(n_contrib, ref_nc)
+        assert ((state - ref_state).abs() <= 1e-4).all()
         g = torch.Generator(device=dev).manual_seed(0)
         d_state = torch.randn(state.shape, generator=g, device=dev)
-    args = (attrs, pairs.tile_start, pairs.tile_end, state, d_state)
-    out = cuda_blend.blend_bwd(*args, W // 16)
-    ref = torch_blend.blend_tiles_bwd_torch(*args, W // 16, 16, 128)
+    args = (pairs.tile_start, pairs.tile_end, state, d_state)
+    out = cuda_blend.blend_bwd(table, pairs.src, *args, W // 16)
+    ref = torch_blend.blend_tiles_bwd_torch(rows, *args, W // 16, 16, 128)
     n = int(pairs.total)
     assert n > 1000
     scale = ref[:n, :10].abs().amax(dim=0)
     assert ((out[:n, :10] - ref[:n, :10]).abs() <= 5e-4 * scale).all()
     assert not out[n:].any() and not out[:, 10:].any()
-    assert torch.equal(out, cuda_blend.blend_bwd(*args, W // 16))
+    assert torch.equal(out, cuda_blend.blend_bwd(table, pairs.src, *args,
+                                                 W // 16))
     assert torch.equal(cuda_repack.repack_cols(out, pairs.order, pairs.total),
                        cuda_repack.repack_cols_torch(out, pairs.order, pairs.total))
 
@@ -170,16 +195,20 @@ def _scene_case(dev):
 
 
 @pytest.mark.parametrize(
-    "case", ["scene", *K3_CASES, *(f"k2_{name}" for name in K2_EDGE_CASES)])
+    "case", ["scene", *K3_CASES, *(f"k2_{name}" for name in EDGE_CASES),
+             *(f"k1_{name}" for name in EDGE_CASES)])
 def test_kernels_match_their_plain_versions(dev, case):
-    """K2 within 5e-4 of each channel's max on every live row, zero where
-    the plain version is zero and beyond, two runs bit-equal; K3 bit-equal;
-    on a rendered scene also the whole gradient of the cuda backend within
-    5e-4 of the group's max against the torch backend."""
+    """K1 with n_contrib bit-equal and the state close; K2 within 5e-4 of
+    each channel's max on every live row, zero where the plain version is
+    zero and beyond, two runs bit-equal; K3 bit-equal; on a rendered scene
+    also the whole gradient of the cuda backend within 5e-4 of the group's
+    max against the torch backend."""
     if case == "scene":
         _scene_case(dev)
     elif case in K3_CASES:
         _k3_case(case, dev)
+    elif case.startswith("k1_"):
+        _k1_case(case, dev)
     else:
         _k2_case(case, dev)
 
