@@ -66,7 +66,35 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    rows K2 walks and how many (warp, row) sums it takes; K2 on the longest
    tile alone; the peak device memory of a step.
 
-Prints the kernels line and the card line, then the result line last.
+9. Dream to video, the app's own path at full width: ``LucidDreamerTPU(
+   device="cuda").create`` on a synthetic 512x512 conditioning image (made
+   from seed 5 with numpy: smooth gradients and waves with hard-edged
+   discs) and the waterfall prompt, on the ``lookdown`` path (14 poses, 70
+   training frames), with the weight-free inpainter and depth, the cloud
+   Morton-subsampled to 400,000 points, capacity 1.2M, the pair budget
+   min(8 x capacity, 6M) and ``GSConfig(iterations=100,
+   position_lr_max_steps=100, densify_from_iter=50,
+   densification_interval=25)``; then all 400 ``llff`` frames of the
+   scene's preset path through ``video.render_frames(device="cuda")``.
+   The 70 frames finite, a cloud of more than 512^2 points, the 1.2M
+   capacity, the loss falling (mean of the last 10 steps below the first
+   10), K2 and K3 launched once per step and K1 once per step and frame,
+   the 400 frames finite and not blank, and ``gsplat.ply`` loadable.
+   Prints the seconds of the dream loop, the align loop and the stages
+   ``create`` times with its ``PhaseTimer``, the cloud's size, ms per bake
+   step (events, host wall), ms per frame, the peak device memory and the
+   PSNR of training view 0 before and after the bake.  After the launch
+   counts are read, the kernels are held against their plain versions at
+   this path's shapes: the whole gradient, ``backend="cuda"`` against
+   ``"torch"`` (K1, K2, K3), on the baked scene at training view 0 and the
+   bake's pair budget, within 5e-4 of each group's max as in 6; K1 on
+   llff frame 0 at the video's budget, at the limits of 4.  (Writing the
+   video files needs imageio, which the script does not ask for; the CPU
+   tests write them.)
+
+Prints the kernels line (``launches``: the sum of each kernel's counts
+over the three main-path runs, phases 3, 7 and 9) and the card line, then
+the result line last.
 Exits non-zero, printing no result, when any phase fails or no CUDA device
 is present.
 """
@@ -268,6 +296,44 @@ def print_build_report():
 
 # ---------------------------------------------------------------- serving
 
+def compare(params, cam, bg, tag, pair_cap=None):
+    """K1 against its plain version on one frame, both through
+    ``render_tiled``: (K1's output, max |d| per output, the share of pixels
+    whose n_contrib is equal, mean |d rgb|, all finite)."""
+    from luciddreamer_tpu_torch.render.tiled import render_tiled
+
+    with torch.no_grad():
+        out = render_tiled(params, cam, bg, chunk=128, pair_cap=pair_cap,
+                           backend="cuda")
+        ref = render_tiled(params, cam, bg, chunk=128, pair_cap=pair_cap,
+                           backend="torch")
+    torch.cuda.synchronize()
+    check(not bool(out["overflow"]), f"{tag}: pair overflow")
+    err = {k: float((out[k] - ref[k]).abs().max())
+           for k in ("render", "depth", "acc", "final_T")}
+    nc_eq = float((out["n_contrib"] == ref["n_contrib"]).float().mean())
+    mean_rgb = float((out["render"] - ref["render"]).abs().mean())
+    finite = all(bool(torch.isfinite(out[k]).all())
+                 for k in ("render", "depth", "acc", "final_T"))
+    print(f"[compare] {tag}: pairs {int(out['num_pairs'])} max|d| "
+          + " ".join(f"{k} {v:.3e}" for k, v in err.items())
+          + f" mean|d rgb| {mean_rgb:.3e} n_contrib equal {nc_eq:.6f}")
+    return out, err, nc_eq, mean_rgb, finite
+
+
+def check_large_frame(params, cam, bg, tag, pair_cap=None):
+    """K1 against its plain version on a frame of a large scene: mean
+    |d rgb| <= 1e-5, max |d rgb| <= 2e-2, n_contrib equal on >= 99.9% of
+    pixels, and acc > 0.5 on >= 5% of them.  Returns max |d rgb|."""
+    out, err, nc_eq, mean_rgb, finite = compare(params, cam, bg, tag, pair_cap)
+    check(finite and mean_rgb <= 1e-5 and err["render"] <= 2e-2
+          and nc_eq >= 0.999, f"K1 disagrees with the plain version on {tag}")
+    acc_share = float((out["acc"] > 0.5).float().mean())
+    print(f"[compare] {tag}: acc > 0.5 on {acc_share:.4f} of pixels")
+    check(acc_share >= 0.05, f"{tag} is nearly blank")
+    return err["render"]
+
+
 def serving(bg, dev):
     """Phases 2-5; returns (app, cams, K1 serving record)."""
     from luciddreamer_tpu_torch.app import LucidDreamerTPU
@@ -282,27 +348,10 @@ def serving(bg, dev):
         default_pair_capacity, render_tiled)
     from luciddreamer_tpu_torch.video import render_frames
 
-    def compare(params, cam, tag):
-        with torch.no_grad():
-            out = render_tiled(params, cam, bg, chunk=128, backend="cuda")
-            ref = render_tiled(params, cam, bg, chunk=128, backend="torch")
-        torch.cuda.synchronize()
-        check(not bool(out["overflow"]), f"{tag}: pair overflow")
-        err = {k: float((out[k] - ref[k]).abs().max())
-               for k in ("render", "depth", "acc", "final_T")}
-        nc_eq = float((out["n_contrib"] == ref["n_contrib"]).float().mean())
-        mean_rgb = float((out["render"] - ref["render"]).abs().mean())
-        finite = all(bool(torch.isfinite(out[k]).all())
-                     for k in ("render", "depth", "acc", "final_T"))
-        print(f"[compare] {tag}: pairs {int(out['num_pairs'])} max|d| "
-              + " ".join(f"{k} {v:.3e}" for k, v in err.items())
-              + f" mean|d rgb| {mean_rgb:.3e} n_contrib equal {nc_eq:.6f}")
-        return out, err, nc_eq, mean_rgb, finite
-
     # ---- 2. K1 against its plain version on the 20k scene ----
     small = make_scene(P_SMALL, seed=7, device=dev)
     cam0 = make_camera(np.eye(4), 0.8279, 0.8279, W, H, device=dev)
-    _, err, nc_eq, _, finite = compare(small, cam0, "20k 512x512")
+    _, err, nc_eq, _, finite = compare(small, cam0, bg, "20k 512x512")
     check(finite and err["render"] <= 1e-5 and err["final_T"] <= 1e-5
           and err["acc"] <= 1e-5 and err["depth"] <= 1e-4 and nc_eq == 1.0,
           "K1 disagrees with the plain version on the 20k scene")
@@ -347,14 +396,7 @@ def serving(bg, dev):
           f"pixels; mean rgb {float(np.mean(rgbs)):.2f}/255")
 
     # ---- 4. K1 against its plain version at the serving shape ----
-    out, err, nc_eq, mean_rgb, finite = compare(app.params, cams[0],
-                                                "1M llff frame 0")
-    check(finite and mean_rgb <= 1e-5 and err["render"] <= 2e-2
-          and nc_eq >= 0.999, "K1 disagrees with the plain version on the 1M frame")
-    acc_share = float((out["acc"] > 0.5).float().mean())
-    print(f"[compare] 1M frame 0: acc > 0.5 on {acc_share:.4f} of pixels")
-    check(acc_share >= 0.05, "1M frame 0 is nearly blank")
-    k1_err = err["render"]
+    k1_err = check_large_frame(app.params, cams[0], bg, "1M llff frame 0")
 
     # ---- 5. serving times per frame ----
     params, cam = app.params, cams[0]
@@ -580,7 +622,7 @@ def check_k3_edges(dev):
         check(equal, f"K3 disagrees with its plain version at live count {live}")
 
 
-def whole_gradient(params, cam, tag):
+def whole_gradient(params, cam, tag, pair_cap=None):
     """backend="cuda" against backend="torch" on every parameter group."""
     from luciddreamer_tpu_torch.render.tiled import render_tiled
 
@@ -591,7 +633,7 @@ def whole_gradient(params, cam, tag):
         for t in params.parameters():
             t.grad = None
         out = render_tiled(params, cam, torch.zeros(3, device="cuda"),
-                           chunk=128, backend=backend)
+                           chunk=128, pair_cap=pair_cap, backend=backend)
         loss = (torch.sum(out["render"] * w) + 0.01 * torch.sum(out["depth"])
                 + 0.3 * torch.sum(out["final_T"] ** 2)
                 + 0.1 * torch.sum(out["acc"]))
@@ -640,6 +682,172 @@ def check_vjp(pairs, d_rows):
           + "; fp32 prefix sum " + " ".join(f"{v:.2e}" for v in e32.tolist()))
     check(float(e64.max()) <= 1e-5, "the gather VJP disagrees with float64")
     return k3_err
+
+
+# ---------------------------------------------------------- dream to video
+
+DREAM_ITERS = 100
+DREAM_FRAMES = 70             # 14 lookdown poses x 5 hemisphere views
+
+
+def conditioning_image(seed):
+    """A 512x512 uint8 landscape-like image: a sky gradient, a wavy ridge
+    over textured ground, and hard-edged discs."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32) / np.float32(H)
+    img = np.stack([0.35 + 0.4 * y, 0.55 + 0.3 * y, 0.9 - 0.2 * y], -1)
+    ridge = 0.45 + 0.08 * np.sin(2 * np.pi * (1.5 * x + rng.uniform()))
+    texture = sum(rng.uniform(0.02, 0.06) * np.sin(
+        2 * np.pi * (rng.uniform(2, 9) * x + rng.uniform(2, 9) * y
+                     + rng.uniform())) for _ in range(6))
+    ground = np.stack([0.25 + texture, 0.4 + 0.5 * (y - 0.5) + texture,
+                       0.2 + texture], -1)
+    img = np.where((y > ridge)[..., None], ground, img)
+    for _ in range(5):
+        cx, cy, r = rng.uniform(0.15, 0.85), rng.uniform(0.5, 0.9), rng.uniform(0.03, 0.08)
+        disc = (x - cx) ** 2 + (y - cy) ** 2 < r * r
+        img[disc] = rng.uniform(0.1, 0.9, size=3)
+    return (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def dream_to_video(dev):
+    """Phase 9: the app's dream -> bake -> video path; returns each kernel's
+    launches in it."""
+    from luciddreamer_tpu_torch import app as app_mod
+    from luciddreamer_tpu_torch.config import GSConfig
+    from luciddreamer_tpu_torch.core.types import GaussianParams
+    from luciddreamer_tpu_torch.model.ply import load_ply
+    from luciddreamer_tpu_torch.render import cuda_blend, cuda_repack
+    from luciddreamer_tpu_torch.render.tiled import render_tiled
+    from luciddreamer_tpu_torch.train.loop import Trainer
+    from luciddreamer_tpu_torch.train.losses import psnr
+    from luciddreamer_tpu_torch.utils import PhaseTimer
+    from luciddreamer_tpu_torch.video import render_frames
+
+    image = conditioning_image(seed=5)
+    prompt = (ROOT / "examples" / "waterfall.txt").read_text().splitlines()[0]
+    marks, record = {}, {"losses": [], "events": []}
+
+    def progress(stage, i, n):
+        if stage not in marks:
+            torch.cuda.synchronize()
+            marks[stage] = time.perf_counter()
+
+    def counted_step(self, state, *a):
+        if not record["events"]:
+            # the scene create_from_pcd made, before the first update
+            record["start"] = GaussianParams.from_param_dict(
+                {k: v.clone() for k, v in state.params.param_dict().items()},
+                state.params.alive.clone())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        start.record()
+        out = step(self, state, *a)
+        end.record()
+        record["events"].append((start, end))
+        record["losses"].append(out[1])
+        return out
+
+    def view0_psnr(params, view):
+        with torch.no_grad():    # the plain blend: no launch is counted
+            out = render_tiled(params, view.camera, torch.zeros(3, device=dev),
+                               backend="torch")
+        return float(psnr(out["render"], torch.as_tensor(view.image, device=dev)))
+
+    step = Trainer._step
+    Trainer._step = counted_step
+    cfg = GSConfig(iterations=DREAM_ITERS, position_lr_max_steps=DREAM_ITERS,
+                   densify_from_iter=50, densification_interval=25)
+    timer = PhaseTimer()
+    bg = torch.zeros(3, device=dev)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            app = app_mod.LucidDreamerTPU(gs_config=cfg, save_dir=tmp,
+                                          device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counters = (cuda_blend.blend_fwd, cuda_blend.blend_bwd,
+                        cuda_repack.repack_cols)
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            ply = app.create(image, prompt, "", "lookdown", seed=1,
+                             diff_steps=30, progress_callback=progress,
+                             timer=timer)
+            torch.cuda.synchronize()
+            create_s = time.perf_counter() - t0
+            cams = app.scene.get_preset_cameras("llff")
+            t1 = time.perf_counter()
+            rgbs, depths = render_frames(app.params, cams, [0.0, 0.0, 0.0],
+                                         active_sh_degree=3, device="cuda")
+            torch.cuda.synchronize()
+            video_s = time.perf_counter() - t1
+            launches = {c.__name__: c.launches for c in counters}
+            peak = torch.cuda.max_memory_allocated()
+            alive = int(app.params.num_alive)
+            reloaded = load_ply(ply, device="cuda")
+    finally:
+        Trainer._step = step
+
+    steps = len(record["losses"])
+    losses = [float(v) for v in record["losses"]]
+    step_ms = [a.elapsed_time(b) for a, b in record["events"]]
+    views = app.scene.get_train_views()
+    cloud = app.traindata["pcd_points"].shape[1]
+    baked = int(record["start"].num_alive)
+    capacity = app.trainer.state.params.capacity
+    psnr_before = view0_psnr(record["start"], views[0])
+    psnr_after = view0_psnr(app.params, views[0])
+    del record["start"]
+    stage = timer.totals
+    dream_s = marks["align"] - t0
+    print(f"[dream] create {create_s:.2f} s host time: dream loop (conditioning "
+          f"and 13 views) {dream_s:.2f} s, align loop ({len(views)} frames) "
+          f"{stage['dream'] - dream_s:.2f} s, Scene {stage['scene']:.2f} s, "
+          f"Morton subsample + create_from_pcd + Trainer {stage['bake_setup']:.2f} "
+          f"s, bake {stage['bake']:.2f} s for {steps} steps, save_ply "
+          f"{stage['save_ply']:.2f} s")
+    print(f"[dream] cloud {cloud} points, {baked} after the Morton subsample; "
+          f"capacity {capacity}; pair budget {app.trainer.pair_cap}; alive "
+          f"after the bake {alive}")
+    print(f"[dream] bake step: device ms by events min / median / max "
+          f"{min(step_ms):.4f} / {float(np.median(step_ms)):.4f} / "
+          f"{max(step_ms):.4f}; host wall {stage['bake'] * 1e3 / steps:.4f} "
+          "ms per step (incl. 2 densifies)")
+    print(f"[dream] loss first 10 {np.round(losses[:10], 5).tolist()} last 10 "
+          f"{np.round(losses[-10:], 5).tolist()}; PSNR of training view 0 "
+          f"before {psnr_before:.3f} dB, after {psnr_after:.3f} dB")
+    covered = [float((d > 0).mean()) for d in depths]
+    print(f"[dream] {len(rgbs)} llff frames in {video_s:.2f} s host time, "
+          f"{video_s * 1e3 / len(rgbs):.4f} ms per frame; depth > 0 on "
+          f"{min(covered):.4f}..{max(covered):.4f} of pixels; mean rgb "
+          f"{float(np.mean(rgbs)):.2f}/255")
+    print(f"[dream] launches {launches}; peak device memory "
+          f"{peak / 2**30:.3f} GiB over create and the video")
+    check(len(views) == DREAM_FRAMES and all(
+        np.isfinite(v.image).all() and np.isfinite(v.depth).all() for v in views),
+        "the dream stage did not give 70 finite training frames")
+    check(cloud > H * W and baked == min(cloud, app_mod.MAX_PCD_POINTS),
+          f"cloud of {cloud} points, {baked} baked")
+    check(capacity == CAPACITY, f"capacity {capacity}, not {CAPACITY}")
+    check(all(np.isfinite(losses)), "a bake loss is not finite")
+    check(np.mean(losses[-10:]) < np.mean(losses[:10]), "the bake loss did not fall")
+    check(launches["blend_bwd"] == steps and launches["repack_cols"] == steps
+          and launches["blend_fwd"] == steps + len(cams),
+          f"launches {launches} for {steps} steps and {len(cams)} frames")
+    check(len(rgbs) == len(cams) == 400 and all(np.isfinite(d).all() for d in depths)
+          and min(covered) >= 0.05, "the video's frames are wrong or blank")
+    check(int(reloaded.num_alive) == alive, "gsplat.ply does not load back")
+
+    # the kernels against their plain versions at this path's own shapes,
+    # after its counts were read: K1, K2 and K3 on the baked scene at the
+    # bake's pair budget and training view 0, K1 on video frame 0 at the
+    # video's budget
+    whole_gradient(app.params, views[0].camera, "dreamed scene, training "
+                   f"view 0, pair budget {app.trainer.pair_cap}",
+                   pair_cap=app.trainer.pair_cap)
+    check_large_frame(app.params, cams[0], bg, "dreamed scene, llff frame 0")
+    return launches
 
 
 # ---------------------------------------------------------------- training
@@ -929,30 +1137,36 @@ def main() -> int:
         whole_gradient(app.params, cams[0], "1M llff frame 0")
 
         train = training(app, cams, dev)
+        del app
+        dream = dream_to_video(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(f"[done] all phases in {time.time() - t_start:.1f} s")
 
     source = "luciddreamer_tpu_torch/csrc/{}.cu".format
+    launches = {k: train["launches"][k] + dream[k] for k in KERNELS}
+    launches["blend_fwd"] += k1["serve_launches"]
     rows = [
         {"name": "blend_fwd", "route": "cuda", "source": source("blend_fwd"),
          "replaces": "luciddreamer_tpu/render/pallas_blend.py:152",
-         "launches": train["launches"]["blend_fwd"],
+         "launches": launches["blend_fwd"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "bytes_bound_ms": k1["bytes_bound_ms"],
          "operations_bound_ms": k1["operations_bound_ms"], "library_ms": None},
         {"name": "blend_bwd", "route": "cuda", "source": source("blend_bwd"),
          "replaces": "luciddreamer_tpu/render/pallas_blend.py:215",
-         "launches": train["launches"]["blend_bwd"], "max_abs_err": k2_err,
+         "launches": launches["blend_bwd"], "max_abs_err": k2_err,
          **train["blend_bwd"], "library_ms": None},
         {"name": "repack_cols", "route": "cuda", "source": source("repack_cols"),
          "replaces": "luciddreamer_tpu/render/binning.py:234",
-         "launches": train["launches"]["repack_cols"], "max_abs_err": k3_err,
+         "launches": launches["repack_cols"], "max_abs_err": k3_err,
          **train["repack_cols"]},
     ]
-    print(f"[serve] K1 launches on the serving path: {k1['serve_launches']}")
+    print(f"[done] launches by path: serving {{'blend_fwd': "
+          f"{k1['serve_launches']}}}, training {train['launches']}, dream to "
+          f"video {dream}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Configuration read by the render and training paths (mirrors
-``luciddreamer_tpu.config``, with its defaults).
-
-The dreaming fields come with the slice that uses them.
+``luciddreamer_tpu.config``, with its defaults).  The dream stage's
+``DreamConfig`` lives with its pipeline, ``dream/pipeline.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+
+import numpy as np
 
 
 @dataclasses.dataclass
@@ -53,3 +54,17 @@ class CameraConfig:
     @property
     def fov_y(self) -> float:
         return 2.0 * math.atan(self.image_height / (2.0 * self.focal[1]))
+
+    @property
+    def K(self) -> np.ndarray:
+        """(3, 3) float32 intrinsics with the principal point at the
+        image centre."""
+        w, h = self.image_width, self.image_height
+        return np.array(
+            [
+                [self.focal[0], 0.0, w / 2.0],
+                [0.0, self.focal[1], h / 2.0],
+                [0.0, 0.0, 1.0],
+            ],
+            dtype=np.float32,
+        )

@@ -15,6 +15,7 @@ step in flight; the lost step is run again after the pair budget doubles.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -34,6 +35,7 @@ from luciddreamer_tpu_torch.model.optim import (
 )
 from luciddreamer_tpu_torch.render.tiled import default_pair_capacity, render_tiled
 from luciddreamer_tpu_torch.train.losses import l1_loss, ssim
+from luciddreamer_tpu_torch.utils.debug import check_finite
 
 
 @dataclasses.dataclass
@@ -236,12 +238,17 @@ class Trainer:
         return norm
 
     def run(self, views, iterations: int | None = None, callback=None,
-            log_every: int = 0):
+            log_every: int = 0, timer=None):
         """Train for ``iterations`` (default cfg.iterations) committed steps.
 
         ``callback(it, state, loss)`` gets ``loss`` as a device scalar;
         reading it every step would sync the host on each step.
         ``log_every`` > 0 prints loss, alive count and pair budget.
+        ``timer``, a ``utils.profiling.PhaseTimer``, gets each step's host
+        time (the launch, not the device's work) as phase "train_step".
+        With ``cfg.debug`` a non-finite loss raises, after an npz snapshot
+        of the parameters, image and view under ``debug_snapshots/`` where
+        they hold a NaN or inf.
         """
         cfg = self.cfg
         iterations = iterations or cfg.iterations
@@ -255,7 +262,9 @@ class Trainer:
             it += 1
             launched += 1
             cam, img, depth = norm[self.py_rng.integers(len(norm))]
-            self.state, loss, ovf = self._step(self.state, cam, img, depth)
+            with (timer.phase("train_step") if timer is not None
+                  else contextlib.nullcontext()):
+                self.state, loss, ovf = self._step(self.state, cam, img, depth)
 
             # the PREVIOUS step's overflow flag (one-step lag): an overflowed
             # step changed nothing, so un-count it; only the first flag of a
@@ -269,6 +278,11 @@ class Trainer:
             pending = (_HostFlag(ovf), self._cap_gen)
 
             if cfg.debug and not bool(torch.isfinite(loss)):
+                check_finite(
+                    {"params": self.state.params.param_dict(), "gt": img,
+                     "camera": {"view": cam.viewmatrix}},
+                    outdir="debug_snapshots", tag=f"train_it{it}",
+                )
                 raise FloatingPointError(f"non-finite loss at iteration {it}")
 
             if log_every and it % log_every == 0:

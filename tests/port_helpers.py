@@ -1,5 +1,8 @@
 """Shared utilities of the port's parity tests: the JAX package's objects
-carried into ``luciddreamer_tpu_torch`` on the CPU, and back to numpy."""
+carried into ``luciddreamer_tpu_torch`` on the CPU, and back to numpy, and
+the golden pipeline run through either package."""
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -73,3 +76,79 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "golden", "waterfall_golden.npz")
+EXAMPLE = os.path.join(REPO, "examples", "waterfall.png")
+PROMPT = os.path.join(REPO, "examples", "waterfall.txt")
+
+
+def block_means(img_chw, blocks=8):
+    """(3, H, W) -> (blocks, blocks, 3) mean pooling."""
+    c, h, w = img_chw.shape
+    bh, bw = h // blocks, w // blocks
+    x = img_chw[:, : bh * blocks, : bw * blocks]
+    return x.reshape(c, blocks, bh, blocks, bw).mean(axis=(2, 4)).transpose(1, 2, 0)
+
+
+def golden_run(which, save_dir, dream_seed=1, **create_kw):
+    """tests/test_golden_pipeline.py's run on the CPU: the waterfall
+    example at 64x64, rotate360, classic inpainter + radial depth,
+    fill_iters 2, 80 iterations, the cloud cut to 3,000 points, then llff
+    frames 0, 100 and 200.  ``which`` is "jax" (the JAX package) or "port"
+    (``luciddreamer_tpu_torch`` on one torch thread).  ``dream_seed`` seeds
+    the inpainter's noise; the bake's seed stays 1.  ``create_kw`` goes to
+    ``create``.  Returns (the golden's statistics, the PLY path, the app)."""
+    from PIL import Image
+
+    if which == "jax":
+        import jax.numpy as jnp
+
+        import luciddreamer_tpu.app as app
+        from luciddreamer_tpu.config import CameraConfig, GSConfig
+        from luciddreamer_tpu.dream import DreamConfig
+        from luciddreamer_tpu.video import render_frames
+        extra, render_kw = {}, dict(bg=jnp.zeros(3), backend="xla")
+    else:
+        import luciddreamer_tpu_torch.app as app
+        from luciddreamer_tpu_torch.config import CameraConfig, GSConfig
+        from luciddreamer_tpu_torch.dream import DreamConfig
+        from luciddreamer_tpu_torch.video import render_frames
+        extra = {"device": "cpu"}
+        render_kw = dict(bg=[0.0, 0.0, 0.0], backend="torch", device="cpu")
+    size = 64
+    focal = 5.8269e02 * size / 512.0
+    ld = app.LucidDreamerTPU(
+        gs_config=GSConfig(iterations=80, position_lr_max_steps=80,
+                           densify_from_iter=30, densification_interval=40),
+        cam_config=CameraConfig(image_width=size, image_height=size,
+                                focal=(focal, focal)),
+        dream_config=DreamConfig(inpainter="classic", depth_estimator="radial",
+                                 fill_iters=2),
+        save_dir=str(save_dir), capacity_multiplier=1.5, seed=1, **extra)
+    threads = torch.get_num_threads()
+    old_cap = app.MAX_PCD_POINTS
+    app.MAX_PCD_POINTS = 3000
+    try:
+        torch.set_num_threads(1)
+        with open(PROMPT) as f:
+            prompt = f.readline().strip()
+        ply_path = ld.create(Image.open(EXAMPLE).convert("RGB"), prompt, "",
+                             "rotate360", seed=dream_seed, diff_steps=2,
+                             **create_kw)
+        cams = ld.scene.get_preset_cameras("llff")
+        rgbs, depths = render_frames(ld.params, [cams[i] for i in (0, 100, 200)],
+                                     **render_kw)
+    finally:
+        app.MAX_PCD_POINTS = old_cap
+        torch.set_num_threads(threads)
+    stats = {
+        "alive": int(ld.params.num_alive),
+        "xyz_mean": np_(ld.params.xyz).mean(0),
+        "blocks": np.stack([block_means(np.asarray(r).transpose(2, 0, 1) / 255.0)
+                            for r in rgbs]),
+        "depth_mean": np.asarray([d[d > 0].mean() for d in depths]),
+        "depth_posfrac": np.asarray([(d > 0).mean() for d in depths]),
+    }
+    return stats, ply_path, ld
