@@ -92,9 +92,33 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    video files needs imageio, which the script does not ask for; the CPU
    tests write them.)
 
+10. The depth model, at full width with RANDOM weights (seeded
+   ``torch.Generator``s; the registry refuses such a model, and no
+   checkpoint is in the repository): ZoeD_N at its published geometry
+   (``ZoeDepthConfig()``: BEiT-L/16, 24 blocks, 1024 wide, 16 heads, hooks
+   5/11/17/23, project readout, 384x512, 64 bins, attractors 16/8/4/1)
+   built through ``ZoeDepthEstimator`` on the card, every parameter on
+   ``cuda``; its depth of phase 9's 512x512 image finite, positive and
+   512x512; ms per call by events and host wall, two rounds of 10 after a
+   warm-up, the peak device memory of a call, the FLOPs of one forward
+   counted from the configuration (``zoe_forward_flops``) and their share
+   of the fp32 peak, a torch.profiler table of a call; one forward at 384x512 without augmentation held
+   against the same weights on the CPU, max |d| <= 1e-3 x max |ref| for
+   the metric and the relative depth.  ZoeD_NK at the same geometry: one
+   forward, finite, and its ms.  Then ``create`` as in 9 with that ZoeD_N
+   registered as the dream's depth estimator (``DreamConfig(
+   depth_estimator=...)``), 30 bake steps and the first 30 ``llff`` frames:
+   one estimator call per dreamed view (14), a finite cloud, capacity 1.2M
+   and the 6M pair budget, every loss finite, K2 and K3 launched once per
+   step and K1 once per step and frame, the frames finite and not blank;
+   the dream loop's seconds beside phase 9's and the ms of depth per view.
+   After the counts are read, K1, K2 and K3 are held against their plain
+   versions on this run's own scene, as in 9: the whole gradient at
+   training view 0 and the bake's pair budget, and K1 on llff frame 0.
+
 Prints the kernels line (``launches``: the sum of each kernel's counts
-over the three main-path runs, phases 3, 7 and 9) and the card line, then
-the result line last.
+over the four main-path runs, phases 3, 7, 9 and 10) and the card line,
+then the result line last.
 Exits non-zero, printing no result, when any phase fails or no CUDA device
 is present.
 """
@@ -712,7 +736,7 @@ def conditioning_image(seed):
 
 def dream_to_video(dev):
     """Phase 9: the app's dream -> bake -> video path; returns each kernel's
-    launches in it."""
+    launches in it and the dream loop's seconds."""
     from luciddreamer_tpu_torch import app as app_mod
     from luciddreamer_tpu_torch.config import GSConfig
     from luciddreamer_tpu_torch.core.types import GaussianParams
@@ -847,6 +871,241 @@ def dream_to_video(dev):
                    f"view 0, pair budget {app.trainer.pair_cap}",
                    pair_cap=app.trainer.pair_cap)
     check_large_frame(app.params, cams[0], bg, "dreamed scene, llff frame 0")
+    return launches, dream_s
+
+
+# ------------------------------------------------------ the depth model
+
+ZOE_SEED = 11
+ZOE_BAKE_STEPS = 30
+ZOE_FRAMES = 30
+ZOE_DEPTH_NAME = "zoed_n_random_weights"
+
+
+def zoe_forward_flops(cfg):
+    """Multiply-add FLOPs (2 each) of one ZoeD_N forward at cfg.img_size,
+    counted from the configuration: the matmuls and convolutions of the
+    ViT, its attention, the DPT and the metric head.  Element-wise work
+    (norms, softmax, resizes, the attractors' pull) is not counted."""
+    v = cfg.vit
+    H, W = cfg.img_size
+    h, w = H // v.patch_size, W // v.patch_size
+    n, C, f, bed = h * w, v.embed_dim, cfg.midas_features, cfg.bin_embedding_dim
+    N, hid = n + 1, int(v.embed_dim * v.mlp_ratio)
+    conv = lambda pixels, cin, cout, k=1: 2 * pixels * cin * cout * k * k
+    vit = conv(n, 3, C, v.patch_size) + v.depth * 2 * N * C * (4 * C + 2 * hid)
+    attention = v.depth * 4 * N * N * C
+    och = cfg.out_channels
+    dpt = 4 * (2 * n * 2 * C * C if v.readout == "project" else 0)
+    dpt += sum(conv(n, C, c) for c in och)
+    dpt += conv(n, och[0], och[0], 4) + conv(n, och[1], och[1], 2)
+    dpt += conv(n // 4, och[3], och[3], 3)
+    level = [16 * n, 4 * n, n, n // 4]            # pixels at strides 4..32
+    dpt += sum(conv(px, c, f, 3) for px, c in zip(level, och))
+    for k, px in enumerate(level):                # refinenet{k+1}
+        dpt += (4 if k < 3 else 2) * conv(px, f, f, 3) + conv(4 * px, f, f)
+    dpt += conv(H * W // 4, f, f // 2, 3) + conv(H * W, f // 2, 32, 3)
+    dpt += conv(H * W, 32, 1)
+    head = conv(n // 4, f, f) + conv(n // 4, f, 256) + conv(n // 4, 256,
+                                                            cfg.n_bins)
+    head += conv(n // 4, f, 128) + conv(n // 4, 128, bed)
+    for px, a in zip([n, 4 * n, 16 * n, 64 * n], cfg.n_attractors):
+        head += conv(px, f, 128) + conv(px, 128, bed)
+        head += conv(px, bed, 128) + conv(px, 128, a)
+    cin = 33 + bed
+    head += conv(H * W, cin, cin // 2) + conv(H * W, cin // 2, 4)
+    return {"vit": vit, "attention": attention, "dpt": dpt, "head": head}
+
+
+def depth_model(dev, radial_dream_s):
+    """Phase 10: ZoeD_N and ZoeD_NK at full width with random weights, and
+    the app's dream -> bake -> video path with that ZoeD_N as its depth
+    model; returns each kernel's launches in the app's run."""
+    import torch.nn.functional as F
+
+    from luciddreamer_tpu_torch import app as app_mod
+    from luciddreamer_tpu_torch.config import GSConfig
+    from luciddreamer_tpu_torch.dream import DreamConfig
+    from luciddreamer_tpu_torch.dream.protocols import register_depth_estimator
+    from luciddreamer_tpu_torch.models.zoedepth import (
+        ZoeDepth, ZoeDepthConfig, ZoeDepthEstimator, init_random_)
+    from luciddreamer_tpu_torch.models.zoedepth_nk import ZoeDepthNK
+    from luciddreamer_tpu_torch.render import cuda_blend, cuda_repack
+    from luciddreamer_tpu_torch.train.loop import Trainer
+    from luciddreamer_tpu_torch.trajectory import get_pcdgen_poses
+    from luciddreamer_tpu_torch.video import render_frames
+
+    # ---- (a) ZoeD_N at its published geometry ----
+    cfg = ZoeDepthConfig()
+    t0 = time.perf_counter()
+    est = ZoeDepthEstimator(cfg, seed=ZOE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in est.model.parameters())
+    print(f"[zoe] ZoeD_N (BEiT-L/16: {cfg.vit.depth} blocks, "
+          f"{cfg.vit.embed_dim} wide, {cfg.vit.num_heads} heads, hooks "
+          f"{tuple(cfg.vit.hooks)}, {cfg.vit.readout} readout; "
+          f"{cfg.img_size[0]}x{cfg.img_size[1]}, {cfg.n_bins} bins, attractors "
+          f"{tuple(cfg.n_attractors)}), RANDOM weights from seed {ZOE_SEED}: "
+          f"{n_params} parameters, built in {time.perf_counter() - t0:.1f} s")
+    check(all(p.is_cuda for p in est.model.parameters()),
+          "a ZoeD_N parameter is not on the card")
+    image = torch.as_tensor(conditioning_image(seed=5), device=dev).float() / 255
+    depth = est(image)
+    check(depth.shape == (H, W) and bool(torch.isfinite(depth).all())
+          and bool((depth > 0).all()), "ZoeD_N's depth is not finite, "
+          f"positive and {H}x{W}")
+    call = lambda: est(image)
+    rounds = [timed(call, 10) for _ in range(2)]
+    peak, base = peak_memory(call)
+    flops = zoe_forward_flops(cfg)
+    per_call = 2 * sum(flops.values())              # the image and its flip
+    for r, (ms, wall) in enumerate(rounds):
+        print(f"[zoe] estimator call on the 512x512 image (pad, resize, 2 "
+              f"forwards, resize back) round {r}: device {ms:.4f} ms, host "
+              f"wall {wall:.4f} ms; {per_call / (ms * 1e-3) / 1e12:.2f} "
+              f"TFLOP/s = {per_call / (ms * 1e-3) / FP32_FLOPS_PER_S:.4f} of "
+              "the fp32 peak")
+    print("[zoe] FLOPs of one forward (matmuls and convolutions): "
+          + ", ".join(f"{k} {v / 1e9:.2f} G" for k, v in flops.items())
+          + f"; total {sum(flops.values()) / 1e9:.2f} G, {per_call / 1e9:.2f} "
+          "G per call")
+    print(f"[zoe] peak device memory of one call {peak / 2**30:.3f} GiB "
+          f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
+          "held before it)")
+    dev_ms, wall_ms, top = device_profile(call, 3, top=10)
+    print(f"[profile] estimator call: device kernels {dev_ms:.4f} ms, host "
+          f"wall {wall_ms:.4f} ms per call (profiler on); by kernel:")
+    for name, t in top:
+        print(f"[profile]   {t:9.4f} ms  {name[:100]}")
+
+    x = F.interpolate(image.permute(2, 0, 1)[None], size=cfg.img_size,
+                      mode="bilinear", align_corners=False, antialias=True)
+    with torch.no_grad():
+        out = est.model(x)
+        cpu_model = ZoeDepth(cfg).eval()
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   est.model.state_dict().items()})
+        t0 = time.perf_counter()
+        ref = cpu_model(x.cpu())
+        cpu_s = time.perf_counter() - t0
+    del cpu_model
+    errs = {}
+    for key in ("metric_depth", "rel_depth"):
+        scale = float(ref[key].abs().max())
+        errs[key] = float((out[key].cpu() - ref[key]).abs().max()) / scale
+        print(f"[zoe] one forward at 384x512 on the card against the CPU "
+              f"({cpu_s:.1f} s there): max |d {key}| / max |ref| "
+              f"{errs[key]:.3e} (max |ref| {scale:.4g})")
+    check(all(e <= 1e-3 for e in errs.values()),
+          f"ZoeD_N on the card disagrees with the CPU: {errs}")
+
+    # ---- (b) ZoeD_NK at full geometry ----
+    nk = init_random_(ZoeDepthNK(cfg).to(dev).eval(), ZOE_SEED + 1)
+
+    def nk_call():
+        with torch.no_grad():
+            return nk(x)
+
+    out = nk_call()
+    check(all(bool(torch.isfinite(out[k]).all()) for k in
+              ("metric_depth", "rel_depth", "domain_logits",
+               "per_domain_depth")), "ZoeD_NK's outputs are not finite")
+    nk_ms, nk_wall = timed(nk_call, 3)
+    print(f"[zoe] ZoeD_NK, random weights from seed {ZOE_SEED + 1}, one "
+          f"forward at 384x512: device {nk_ms:.4f} ms, host wall "
+          f"{nk_wall:.4f} ms; finite")
+    del nk, out
+
+    # ---- (c) the app with that depth model ----
+    depth_s = []
+
+    def counted_depth(img):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d = est(img)
+        torch.cuda.synchronize()
+        depth_s.append(time.perf_counter() - t)
+        return d
+
+    register_depth_estimator(ZOE_DEPTH_NAME, lambda device=None: counted_depth)
+    prompt = (ROOT / "examples" / "waterfall.txt").read_text().splitlines()[0]
+    marks, losses = {}, []
+
+    def progress(stage, i, n):
+        if stage not in marks:
+            torch.cuda.synchronize()
+            marks[stage] = time.perf_counter()
+
+    def counted_step(self, state, *a):
+        out = step(self, state, *a)
+        losses.append(out[1])
+        return out
+
+    step = Trainer._step
+    Trainer._step = counted_step
+    gs_cfg = GSConfig(iterations=ZOE_BAKE_STEPS,
+                      position_lr_max_steps=ZOE_BAKE_STEPS,
+                      densify_from_iter=50, densification_interval=25)
+    counters = (cuda_blend.blend_fwd, cuda_blend.blend_bwd,
+                cuda_repack.repack_cols)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            app = app_mod.LucidDreamerTPU(
+                gs_config=gs_cfg, save_dir=tmp, device="cuda",
+                dream_config=DreamConfig(depth_estimator=ZOE_DEPTH_NAME))
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            app.create(conditioning_image(seed=5), prompt, "", "lookdown",
+                       seed=1, diff_steps=30, progress_callback=progress)
+            torch.cuda.synchronize()
+            create_s = time.perf_counter() - t0
+            cams = app.scene.get_preset_cameras("llff")[:ZOE_FRAMES]
+            rgbs, depths = render_frames(app.params, cams, [0.0, 0.0, 0.0],
+                                         active_sh_degree=3, device="cuda")
+            torch.cuda.synchronize()
+            launches = {c.__name__: c.launches for c in counters}
+    finally:
+        Trainer._step = step
+    dream_s = marks["align"] - t0
+    views = len(get_pcdgen_poses("lookdown"))
+    steps = len(losses)
+    losses = [float(v) for v in losses]
+    cloud = app.traindata["pcd_points"]
+    covered = [float((d > 0).mean()) for d in depths]
+    print(f"[zoe] create with ZoeD_N as the depth model {create_s:.2f} s host "
+          f"time: dream loop (conditioning and {views - 1} views) {dream_s:.2f} "
+          f"s against {radial_dream_s:.2f} s with radial depth (phase 9); "
+          f"{len(depth_s)} estimator calls, {np.mean(depth_s) * 1e3:.2f} ms "
+          "each (host wall, synchronised)")
+    print(f"[zoe] cloud {cloud.shape[1]} points; capacity "
+          f"{app.trainer.state.params.capacity}; pair budget "
+          f"{app.trainer.pair_cap}; {steps} bake steps, loss first 5 "
+          f"{np.round(losses[:5], 5).tolist()} last 5 "
+          f"{np.round(losses[-5:], 5).tolist()}; {len(rgbs)} llff frames, "
+          f"depth > 0 on {min(covered):.4f}..{max(covered):.4f} of pixels; "
+          f"launches {launches}")
+    check(len(depth_s) == views,
+          f"{len(depth_s)} depth calls for {views} dreamed views")
+    check(bool(np.isfinite(cloud).all()), "the dreamed cloud is not finite")
+    check(app.trainer.state.params.capacity == CAPACITY
+          and app.trainer.pair_cap == app_mod.MAX_PAIR_CAP,
+          "the bake did not run at phase 9's capacity and pair budget")
+    check(steps == ZOE_BAKE_STEPS and all(np.isfinite(losses)),
+          f"{steps} bake steps, or a loss that is not finite")
+    check(launches["blend_bwd"] == steps and launches["repack_cols"] == steps
+          and launches["blend_fwd"] == steps + len(cams),
+          f"launches {launches} for {steps} steps and {len(cams)} frames")
+    check(len(rgbs) == ZOE_FRAMES and all(np.isfinite(d).all() for d in depths)
+          and min(covered) >= 0.05, "the video's frames are wrong or blank")
+
+    # the kernels against their plain versions on this path's own scene,
+    # after its counts were read, as phase 9 does on its own
+    whole_gradient(app.params, app.scene.get_train_views()[0].camera,
+                   "ZoeD_N dreamed scene, training view 0, pair budget "
+                   f"{app.trainer.pair_cap}", pair_cap=app.trainer.pair_cap)
+    check_large_frame(app.params, cams[0], torch.zeros(3, device=dev),
+                      "ZoeD_N dreamed scene, llff frame 0")
     return launches
 
 
@@ -1138,14 +1397,15 @@ def main() -> int:
 
         train = training(app, cams, dev)
         del app
-        dream = dream_to_video(dev)
+        dream, radial_dream_s = dream_to_video(dev)
+        zoe = depth_model(dev, radial_dream_s)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(f"[done] all phases in {time.time() - t_start:.1f} s")
 
     source = "luciddreamer_tpu_torch/csrc/{}.cu".format
-    launches = {k: train["launches"][k] + dream[k] for k in KERNELS}
+    launches = {k: train["launches"][k] + dream[k] + zoe[k] for k in KERNELS}
     launches["blend_fwd"] += k1["serve_launches"]
     rows = [
         {"name": "blend_fwd", "route": "cuda", "source": source("blend_fwd"),
@@ -1166,7 +1426,7 @@ def main() -> int:
     ]
     print(f"[done] launches by path: serving {{'blend_fwd': "
           f"{k1['serve_launches']}}}, training {train['launches']}, dream to "
-          f"video {dream}")
+          f"video {dream}, dream with ZoeD_N {zoe}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

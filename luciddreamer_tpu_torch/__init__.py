@@ -3,8 +3,9 @@
 This package holds the whole app (``app.LucidDreamerTPU`` and ``cli``: one
 image and a prompt -> a dreamed point cloud (``dream/``) -> baked Gaussians
 -> videos), the serving path (load a Gaussian scene from a PLY file and
-render a camera path through the tiled renderer) and the training path
-(``train.loop.Trainer``: render, loss, backward, Adam, densify/prune).  The
+render a camera path through the tiled renderer), the training path
+(``train.loop.Trainer``: render, loss, backward, Adam, densify/prune) and
+ZoeDepth inference (``models/``: ZoeD_N, ZoeD_K, ZoeD_NK).  The
 renderer's forward and backward tile blend and the cotangent column repack
 of its binning are hand-written CUDA kernels (``csrc/blend_fwd.cu``,
 ``csrc/blend_bwd.cu``, ``csrc/repack_cols.cu``).  It imports ``torch``,

@@ -32,8 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "local diffusers dir, or a .safetensors file "
                         "(converted once)")
     p.add_argument("--depth_model", type=str, default="radial",
-                   help="Depth backend (radial | registered name; zoedepth "
-                        "and zoedepth_flax are not ported yet)")
+                   help="Depth backend (radial | zoedepth_flax | "
+                        "registered name; zoedepth is not ported yet)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--diff_steps", type=int, default=50,
                    help="Inpainting inference steps")
@@ -65,11 +65,15 @@ def main(argv=None, device=None):
     from luciddreamer_tpu_torch.config import CameraConfig, GSConfig
     from luciddreamer_tpu_torch.device import resolve_device
     from luciddreamer_tpu_torch.dream import DreamConfig, resolve_sd_checkpoint
-    from luciddreamer_tpu_torch.dream.protocols import inpainter_factory
+    from luciddreamer_tpu_torch.dream.protocols import (
+        depth_estimator_factory,
+        inpainter_factory,
+    )
 
     # before anything is written or a checkpoint converted
     device = resolve_device(device)
     inpainter_factory(args.inpainter, args.model_name)
+    depth_estimator_factory(args.depth_model)
 
     rgb_cond = Image.open(args.image).convert("RGB")
     txt = read_text(args.text)

@@ -223,7 +223,8 @@ def generate_pcd(
     cam = cam or CameraConfig()
     inpainter = inpainter or get_inpainter(cfg.inpainter,
                                            model=cfg.model_name)
-    depth_estimator = depth_estimator or get_depth_estimator(cfg.depth_estimator)
+    depth_estimator = depth_estimator or get_depth_estimator(
+        cfg.depth_estimator, device=dev)
     H, W = cam.image_height, cam.image_width
     K = torch.as_tensor(cam.K, device=dev)
     rng = torch.Generator(device=dev).manual_seed(seed)

@@ -7,9 +7,11 @@
 
 Both take and return tensors and run on the device of their input.  The
 defaults are weight-free stand-ins (``ClassicInpainter``, ``RadialDepth``)
-that exercise the whole geometry pipeline.  The adapters for real
-checkpoints (Stable Diffusion, LaMa, ControlNet, ZoeDepth) are not ported
-yet: asking for one raises.
+that exercise the whole geometry pipeline.  ``zoedepth_flax`` is the port's
+ZoeDepth (``models/``) at its tiny test scale with seeded random weights,
+as the JAX package's name of it builds.  The adapters for real checkpoints
+(Stable Diffusion, LaMa, ControlNet, transformers' ZoeDepth) are not
+ported yet: asking for one raises.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from luciddreamer_tpu_torch.dream.warp import edge_pad
 
 # the JAX package's gated adapters, which need checkpoints to port against
 UNPORTED_INPAINTERS = ("sd", "lama", "sd_controlnet")
-UNPORTED_DEPTH = ("zoedepth", "zoedepth_flax")
+UNPORTED_DEPTH = ("zoedepth",)
 
 
 class Inpainter(Protocol):
@@ -106,8 +108,19 @@ class RadialDepth:
 _INPAINTERS: dict[str, Callable[..., Inpainter]] = {
     "classic": lambda: ClassicInpainter(),
 }
-_DEPTH: dict[str, Callable[[], DepthEstimator]] = {
-    "radial": lambda: RadialDepth(),
+
+
+def _zoedepth_flax(device=None):
+    """What the JAX package's ``FlaxZoeDepthEstimator()`` is: the tiny
+    config with random weights from seed 0 (not the same draws)."""
+    from luciddreamer_tpu_torch.models.zoedepth import ZoeDepthEstimator
+
+    return ZoeDepthEstimator(device=device)
+
+
+_DEPTH: dict[str, Callable[..., DepthEstimator]] = {
+    "radial": lambda device=None: RadialDepth(),
+    "zoedepth_flax": _zoedepth_flax,
 }
 
 
@@ -116,6 +129,8 @@ def register_inpainter(name: str, factory):
 
 
 def register_depth_estimator(name: str, factory):
+    """Register ``factory(device=None)``: it builds the estimator on
+    ``device`` (None: the CUDA device), the device the dream runs on."""
     _DEPTH[name] = factory
 
 
@@ -127,6 +142,15 @@ def _not_ported(kind: str, name: str):
     )
 
 
+def _takes(factory, param: str) -> bool:
+    import inspect
+
+    try:
+        return param in inspect.signature(factory).parameters
+    except (TypeError, ValueError):
+        return False
+
+
 def inpainter_factory(name: str = "classic", model: str | None = None):
     """The registered factory of ``name``, checked before anything is built:
     raises for an adapter that is not ported, and for a ``model`` given to
@@ -135,13 +159,7 @@ def inpainter_factory(name: str = "classic", model: str | None = None):
         raise _not_ported("inpainter", name)
     factory = _INPAINTERS[name]
     if model is not None:
-        import inspect
-
-        try:
-            takes_model = "model" in inspect.signature(factory).parameters
-        except (TypeError, ValueError):
-            takes_model = False
-        if not takes_model:
+        if not _takes(factory, "model"):
             raise ValueError(
                 f"inpainter {name!r} does not accept a checkpoint; "
                 "use a factory with a 'model' parameter with --model_name"
@@ -156,10 +174,19 @@ def get_inpainter(name: str = "classic", model: str | None = None) -> Inpainter:
     return factory(model=model) if model is not None else factory()
 
 
-def get_depth_estimator(name: str = "radial") -> DepthEstimator:
+def depth_estimator_factory(name: str = "radial"):
+    """The registered factory of ``name``, checked before anything is built:
+    raises NotImplementedError for an adapter that is not ported and
+    KeyError for an unknown name."""
     if name in UNPORTED_DEPTH and name not in _DEPTH:
         raise _not_ported("depth estimator", name)
-    return _DEPTH[name]()
+    return _DEPTH[name]
+
+
+def get_depth_estimator(name: str = "radial", device=None) -> DepthEstimator:
+    """Build a registered depth estimator on ``device`` (None: the CUDA
+    device), so that the model lives where the dream runs."""
+    return depth_estimator_factory(name)(device=device)
 
 
 def resolve_sd_checkpoint(model_name: str | None,

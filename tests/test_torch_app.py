@@ -426,15 +426,18 @@ def test_create_times_its_stages(golden_run):
     assert timer.totals["bake"] >= timer.totals["train_step"] > 0.0
 
 
-@pytest.mark.parametrize("inpainter, model, error", [
-    ("classic", "x.safetensors", ValueError),
-    ("sd", "x.safetensors", NotImplementedError),
-    ("sd", None, NotImplementedError),
+@pytest.mark.parametrize("inpainter, model, depth_model, error", [
+    ("classic", "x.safetensors", None, ValueError),
+    ("sd", "x.safetensors", None, NotImplementedError),
+    ("sd", None, None, NotImplementedError),
+    ("classic", None, "zoedepth", NotImplementedError),
+    ("classic", None, "no-such-model", KeyError),
 ])
 def test_cli_rejects_an_unusable_inpainter_first(tmp_path, monkeypatch,
-                                                 inpainter, model, error):
-    """A bad --inpainter / --model_name fails before a checkpoint is
-    converted or anything is written."""
+                                                 inpainter, model,
+                                                 depth_model, error):
+    """A bad --inpainter / --model_name, and likewise a bad --depth_model,
+    fails before a checkpoint is converted or anything is written."""
     import luciddreamer_tpu_torch.dream as dream
 
     monkeypatch.setattr(dream, "resolve_sd_checkpoint", lambda *a, **k:
@@ -443,18 +446,30 @@ def test_cli_rejects_an_unusable_inpainter_first(tmp_path, monkeypatch,
             "--save_dir", str(tmp_path / "out")]
     if model:
         argv += ["--model_name", model]
+    if depth_model:
+        argv += ["--depth_model", depth_model]
     with pytest.raises(error):
         cli.main(argv, device="cpu")
     assert not any(tmp_path.iterdir())
 
 
-def test_cli_end_to_end(tmp_path):
+@pytest.mark.parametrize("depth_model", ["radial", "zoedepth_flax"])
+def test_cli_end_to_end(tmp_path, monkeypatch, depth_model):
+    """The CLI from the image to gsplat.ply and the videos, with each depth
+    model the port has; the render path is cut to its first 12 frames,
+    which run the same code as all 201."""
+    import luciddreamer_tpu_torch.scene.scene as scene_mod
+
+    paths = scene_mod.get_camera_paths
+    monkeypatch.setattr(scene_mod, "get_camera_paths", lambda: {
+        k: {**v, "frames": v["frames"][:12]} for k, v in paths().items()})
     out = tmp_path / "out"
     cli.main([
         "--image", str(EXAMPLE),
         "--text", str(PROMPT),
         "--campath_gen", "rotate360",
         "--campath_render", "back_and_forth",
+        "--depth_model", depth_model,
         "--seed", "3",
         "--diff_steps", "1",
         "--iterations", "4",

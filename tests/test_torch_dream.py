@@ -187,9 +187,16 @@ def test_unported_adapters_raise():
     for name in ("sd", "lama", "sd_controlnet"):
         with pytest.raises(NotImplementedError, match="not ported"):
             tproto.get_inpainter(name)
-    for name in ("zoedepth", "zoedepth_flax"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tproto.get_depth_estimator(name)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tproto.get_depth_estimator("zoedepth")
+    # zoedepth_flax is ported: the port's ZoeDepth, built where asked
+    from luciddreamer_tpu_torch.models import ZoeDepthEstimator
+
+    est = tproto.get_depth_estimator("zoedepth_flax", device="cpu")
+    assert isinstance(est, ZoeDepthEstimator)
+    assert {p.device.type for p in est.model.parameters()} == {"cpu"}
+    with pytest.raises(KeyError):
+        tproto.get_depth_estimator("no-such-backend")
     with pytest.raises(KeyError):
         tproto.get_inpainter("no-such-backend")
     with pytest.raises(ValueError, match="checkpoint"):
