@@ -116,8 +116,38 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    versions on this run's own scene, as in 9: the whole gradient at
    training view 0 and the bake's pair budget, and K1 on llff frame 0.
 
+11. Sharded training (``parallel/``) at the training main path's full width:
+   phase 7's scene (1M live in 1.2M, 512x512, its 4 llff targets).
+   (a) Frame 0 as 4 bands of 8 tile rows, each through
+   ``parallel.sharded._render_rows`` with backend "cuda", stitched and held
+   against ``render_tiled`` at the limits of 4 with radii equal; the
+   bands' summed gradient of a seeded weighted sum against the whole
+   render's, each group within 5e-4 of its max (K1, K2 and K3 launched
+   once a band); on the band with most pairs K1 against its plain version
+   at the limits of 4, K2 as in 6 (>= 99.9% of rows), K3 bit-equal and the
+   binning VJP against float64; binning + K1 device ms of each band
+   against the whole frame's.  (b) An NCCL world of one
+   (``multihost.initialize`` at a loopback address, a 1 x 1 mesh):
+   ``ShardedTrainer`` for 20 iterations against ``Trainer`` with the same
+   seed, pair budget (9.6M) and chunk: the same step count and alive
+   mask, xyz within 2e-4; ``grad_overlap=True`` for 5 steps against the
+   batch step (xyz: beyond 0.05 of the xyz lr on <= 0.1% of entries);
+   K1-K3 launched once per step run.  (c) ``dryrun_multichip(1)`` (K1-K3
+   three times each).  Prints a sharded step's and a Trainer step's ms
+   (events, host wall) and the sharded step's peak memory, with the card's
+   name and power limit.
+12. Depth training: ``DepthTrainer(device="cuda")`` on ZoeD_N at its
+   published geometry, random weights from seed 11, 5 steps at batch 2 and
+   384x512 on a seeded synthetic batch (crops of phase 9's image, a smooth
+   depth of low-frequency waves): every loss finite, the parameters moved,
+   ms per step (events, host wall), the FLOPs' share of the fp32 peak (3 x
+   ``zoe_forward_flops`` per image) and the peak memory; a batch with a NaN
+   depth changes nothing; one step of the tiny configuration on the card
+   against the CPU (loss within 1e-4 relative, updates within 0.05 lr on
+   >= 99.9% of entries).
+
 Prints the kernels line (``launches``: the sum of each kernel's counts
-over the four main-path runs, phases 3, 7, 9 and 10) and the card line,
+over the five main-path runs, phases 3, 7, 9, 10 and 11) and the card line,
 then the result line last.
 Exits non-zero, printing no result, when any phase fails or no CUDA device
 is present.
@@ -501,17 +531,33 @@ def serving(bg, dev):
 
 # ------------------------------------------------------- K2 / K3 / gradient
 
-def frame_inputs(params, cam, seed):
+def band_proc(proc, capacity, t, n):
+    """Band t of n of a 512x512 frame's preprocessed Gaussians as
+    ``parallel.sharded._render_rows`` bins them: (proc, the band's height,
+    its default pair budget)."""
+    from luciddreamer_tpu_torch.parallel.sharded import (
+        band_of, band_pair_capacity)
+
+    rows = H // 16 // n
+    return (band_of(proc, t * rows, rows, 16), rows * 16,
+            band_pair_capacity(capacity, n))
+
+
+def frame_inputs(params, cam, seed, band=None):
     """Sorted pairs, the attribute table, K1's state and random cotangents
-    at one frame."""
+    at one frame, or at its band t of n (``band=(t, n)``, binned as
+    ``parallel.sharded._render_rows`` bins it, at the default per-band
+    budget)."""
     from luciddreamer_tpu_torch.render import binning, cuda_blend
     from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians
     from luciddreamer_tpu_torch.render.tiled import default_pair_capacity
 
     with torch.no_grad():
         proc = preprocess_gaussians(params, cam, 3)
-        pair_cap = default_pair_capacity(params.capacity)
-        pairs = binning.sort_pairs(proc, H, W, 16, pair_cap)
+        pair_cap, height = default_pair_capacity(params.capacity), H
+        if band is not None:
+            proc, height, pair_cap = band_proc(proc, params.capacity, *band)
+        pairs = binning.sort_pairs(proc, height, W, 16, pair_cap)
         table = binning.gaussian_attr_table(proc)
         state, _ = cuda_blend.blend_fwd(table, pairs.src, pairs.tile_start,
                                         pairs.tile_end, W // 16)
@@ -534,10 +580,11 @@ def k2_runs(table, src, tile_start, tile_end, state, d_state, grid_x):
     return out, rerun, ref
 
 
-def check_k2(params, cam, tag, row_share):
-    """K2 against the plain K2; returns (pairs, K2's output, max abs
-    error)."""
-    pairs, table, state, d_state = frame_inputs(params, cam, seed=11)
+def check_k2(params, cam, tag, row_share, band=None):
+    """K2 against the plain K2 (on band t of n with ``band=(t, n)``);
+    returns (pairs, K2's output, max abs error)."""
+    pairs, table, state, d_state = frame_inputs(params, cam, seed=11,
+                                                band=band)
     out, rerun, ref = k2_runs(table, pairs.src, pairs.tile_start,
                               pairs.tile_end, state, d_state, W // 16)
     rerun_equal = torch.equal(out, rerun)
@@ -1111,23 +1158,19 @@ def depth_model(dev, radial_dream_s):
 
 # ---------------------------------------------------------------- training
 
-def training(app, cams, dev):
-    """Phase 7 (the training main path) and phase 8 (its times)."""
-    from luciddreamer_tpu_torch.config import GSConfig
+def training_scene(cams, dev, points=P_FULL, capacity=CAPACITY):
+    """The training path's scene (phases 7 and 11): the bench scene padded
+    to capacity 1.2M with dead rows, its renders at the first 4 llff poses
+    as targets, and the start: the same Gaussians with features_dc and
+    opacity perturbed from seed 43.  Returns (start, views)."""
     from luciddreamer_tpu_torch.core.types import GaussianParams
     from luciddreamer_tpu_torch.model import gaussians as gs
-    from luciddreamer_tpu_torch.model.optim import (
-        adam_init, adam_update, learning_rates)
-    from luciddreamer_tpu_torch.render import (
-        binning, cuda_blend, cuda_repack, kernels, torch_blend)
-    from luciddreamer_tpu_torch.render.blend_cases import blend_work
+    from luciddreamer_tpu_torch.model.optim import adam_init
     from luciddreamer_tpu_torch.render.tiled import render_tiled
-    from luciddreamer_tpu_torch.train.loop import Trainer
 
-    # ---- 7. set-up ----
-    scene = make_scene(P_FULL, seed=42, device=dev)
+    scene = make_scene(points, seed=42, device=dev)
     scene, _, _ = gs.grow_capacity(scene, adam_init(scene.param_dict()),
-                                   gs.DensifyStats.zero(P_FULL, dev), CAPACITY)
+                                   gs.DensifyStats.zero(points, dev), capacity)
     views = []
     with torch.no_grad():
         for cam in cams[:TRAIN_VIEWS]:
@@ -1142,7 +1185,21 @@ def training(app, cams, dev):
             (-1,) + (1,) * (len(shape) - 1))
     p["f_dc"] = p["f_dc"] + noise(p["f_dc"].shape, 0.3)
     p["opacity"] = p["opacity"] + noise(p["opacity"].shape, 1.0)
-    start = GaussianParams.from_param_dict(p, alive)
+    return GaussianParams.from_param_dict(p, alive), views
+
+def training(app, cams, dev):
+    """Phase 7 (the training main path) and phase 8 (its times)."""
+    from luciddreamer_tpu_torch.config import GSConfig
+    from luciddreamer_tpu_torch.core.types import GaussianParams
+    from luciddreamer_tpu_torch.model import gaussians as gs
+    from luciddreamer_tpu_torch.model.optim import adam_update, learning_rates
+    from luciddreamer_tpu_torch.render import (
+        binning, cuda_blend, cuda_repack, kernels, torch_blend)
+    from luciddreamer_tpu_torch.render.blend_cases import blend_work
+    from luciddreamer_tpu_torch.train.loop import Trainer
+
+    # ---- 7. set-up ----
+    start, views = training_scene(cams, dev)
     cfg = GSConfig(iterations=TRAIN_ITERS, densify_from_iter=10,
                    densification_interval=10)
     tr = Trainer(start, cfg, cameras_extent=2.0, device="cuda")
@@ -1361,6 +1418,397 @@ def training(app, cams, dev):
     }
 
 
+# ------------------------------------------------------ sharded training
+
+SHARD_TILES = 4               # bands of the decomposition in phase 11 (a)
+SHARD_STEPS = 20
+OVERLAP_STEPS = 5
+SHARD_CHUNK = 128
+SHARD_PAIR_CAP = 9_600_000    # Trainer's default at capacity 1.2M
+
+
+def counts():
+    from luciddreamer_tpu_torch.render import cuda_blend, cuda_repack
+
+    return {"blend_fwd": cuda_blend.blend_fwd.launches,
+            "blend_bwd": cuda_blend.blend_bwd.launches,
+            "repack_cols": cuda_repack.repack_cols.launches}
+
+
+def zero_counts():
+    from luciddreamer_tpu_torch.render import cuda_blend, cuda_repack
+
+    for c in (cuda_blend.blend_fwd, cuda_blend.blend_bwd,
+              cuda_repack.repack_cols):
+        c.launches = 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def clone_params(params):
+    from luciddreamer_tpu_torch.core.types import GaussianParams
+
+    return GaussianParams.from_param_dict(
+        {k: v.clone() for k, v in params.param_dict().items()},
+        params.alive.clone())
+
+
+def band_decomposition(start, cam, dev):
+    """Phase 11 (a): the frame as SHARD_TILES bands, each rendered by
+    ``_render_rows`` with backend "cuda", against the whole render, and the
+    summed gradient of the bands against the whole one; returns the
+    launches of the bands' forward and backward."""
+    from luciddreamer_tpu_torch.parallel.sharded import (
+        _render_rows, band_pair_capacity)
+    from luciddreamer_tpu_torch.render.tiled import render_tiled
+
+    n, rows = SHARD_TILES, H // 16 // SHARD_TILES
+    bg = torch.zeros(3, device=dev)
+    cap = band_pair_capacity(start.capacity, n)
+
+    def band(t, backend="cuda"):
+        return _render_rows(start, cam, bg, t * rows, rows, active_sh_degree=3,
+                            tile_size=16, chunk=SHARD_CHUNK, pair_cap=cap,
+                            backend=backend)
+
+    with torch.no_grad():
+        whole = render_tiled(start, cam, bg, chunk=SHARD_CHUNK)
+        bands = [band(t) for t in range(n)]
+    check(not bool(whole["overflow"]) and not any(bool(b["overflow"])
+                                                  for b in bands),
+          "a band or the whole frame overflowed")
+    cat = lambda k, dim: torch.cat([b[k] for b in bands], dim)
+    stitched = {"render": cat("render", 1), "depth": cat("depth", 0),
+                "acc": cat("acc", 0), "n_contrib": cat("n_contrib", 0)}
+    err = {k: float((stitched[k] - whole[k]).abs().max())
+           for k in ("render", "depth", "acc")}
+    mean_rgb = float((stitched["render"] - whole["render"]).abs().mean())
+    nc_eq = float((stitched["n_contrib"] == whole["n_contrib"]).float().mean())
+    radii_eq = all(torch.equal(b["radii"], whole["radii"]) for b in bands)
+    print(f"[shard] {n} bands of {rows} tile rows at llff frame 0 (pairs "
+          f"{[int(b['num_pairs']) for b in bands]}, budget {cap} each; whole "
+          f"frame {int(whole['num_pairs'])}): stitched against render_tiled "
+          "max|d| " + " ".join(f"{k} {v:.3e}" for k, v in err.items())
+          + f" mean|d rgb| {mean_rgb:.3e} n_contrib equal {nc_eq:.6f}; radii "
+          f"equal on every band: {radii_eq}")
+    check(mean_rgb <= 1e-5 and err["render"] <= 2e-2 and nc_eq >= 0.999
+          and radii_eq, "the bands disagree with the whole render")
+
+    w = torch.randn((3, H, W), generator=torch.Generator(device=dev)
+                    .manual_seed(5), device=dev)
+
+    def grads(loss_of):
+        for t in start.parameters():
+            t.grad = None
+        loss_of().backward()
+        return {k: t.grad.clone() for k, t in start.named_parameters()}
+
+    def whole_loss():
+        out = render_tiled(start, cam, bg, chunk=SHARD_CHUNK)
+        return torch.sum(out["render"] * w) + 0.01 * torch.sum(out["depth"])
+
+    def bands_loss():
+        total = 0.0
+        for t in range(n):
+            out = band(t)
+            r = slice(t * rows * 16, (t + 1) * rows * 16)
+            total = total + torch.sum(out["render"] * w[:, r]) \
+                + 0.01 * torch.sum(out["depth"])
+        return total
+
+    ref = grads(whole_loss)
+    torch.cuda.synchronize()
+    zero_counts()
+    got = grads(bands_loss)
+    torch.cuda.synchronize()
+    launches = counts()
+    for t in start.parameters():
+        t.grad = None
+    errs = {k: float((got[k] - ref[k]).abs().max()
+                     / ref[k].abs().max().clamp_min(1e-30)) for k in ref}
+    print(f"[shard] gradient of a seeded weighted sum, the {n} bands' sum "
+          "against the whole render's, max |d| / group max: "
+          + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; launches {launches}")
+    check(max(errs.values()) <= 5e-4,
+          "the bands' gradient disagrees with the whole render's")
+    check(all(v == n for v in launches.values()),
+          f"launches {launches} for {n} bands' forward and backward")
+
+    # K1, K2 and K3 against their plain versions on the band with most pairs
+    t = int(np.argmax([int(b["num_pairs"]) for b in bands]))
+    with torch.no_grad():
+        out, plain = band(t), band(t, "torch")
+    torch.cuda.synchronize()
+    d_rgb = (out["render"] - plain["render"]).abs()
+    nc = float((out["n_contrib"] == plain["n_contrib"]).float().mean())
+    k1_err = float(d_rgb.max())
+    print(f"[shard] band {t}: K1 against its plain version max |d rgb| "
+          f"{k1_err:.3e} mean {float(d_rgb.mean()):.3e} max |d depth| "
+          f"{float((out['depth'] - plain['depth']).abs().max()):.3e} "
+          f"n_contrib equal {nc:.6f}")
+    check(float(d_rgb.mean()) <= 1e-5 and k1_err <= 2e-2 and nc >= 0.999,
+          f"K1 disagrees with its plain version on band {t}")
+    pairs, d_rows, k2_err = check_k2(start, cam, f"1M band {t} of {n}", 0.999,
+                                     band=(t, n))
+    k3_err = check_vjp(pairs, d_rows)
+    return launches, t, {"blend_fwd": k1_err, "blend_bwd": k2_err,
+                         "repack_cols": k3_err}
+
+
+def band_binning_ms(params, cam, t, n):
+    """Device ms of binning and K1 alone, at band t of n (n = 1: the whole
+    frame)."""
+    from luciddreamer_tpu_torch.render import binning, cuda_blend
+    from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians
+
+    with torch.no_grad():
+        proc, height, cap = band_proc(preprocess_gaussians(params, cam, 3),
+                                      params.capacity, t, n)
+
+        def run():
+            pairs = binning.sort_pairs(proc, height, W, 16, cap)
+            table = binning.gaussian_attr_table(proc)
+            return cuda_blend.blend_fwd(table, pairs.src, pairs.tile_start,
+                                        pairs.tile_end, W // 16)
+
+        return min(timed(run, 10)[0] for _ in range(2))
+
+
+def sharded_training(cams, dev, smi):
+    """Phase 11: the sharded training path at the training main path's full
+    width; returns its launches, the band compared and K1-K3's errors."""
+    import torch.distributed as dist
+
+    from luciddreamer_tpu_torch.config import GSConfig
+    from luciddreamer_tpu_torch.parallel import ShardedTrainer, make_mesh
+    from luciddreamer_tpu_torch.parallel import multihost
+    from luciddreamer_tpu_torch.parallel.dryrun import dryrun_multichip
+    from luciddreamer_tpu_torch.train.loop import Trainer
+
+    start, views = training_scene(cams, dev)
+    cam, img = views[0]
+
+    # ---- (a) the band decomposition ----
+    band_launches, band_t, errs = band_decomposition(start, cam, dev)
+    whole_ms = band_binning_ms(start, cam, 0, 1)
+    band_ms = [band_binning_ms(start, cam, t, SHARD_TILES)
+               for t in range(SHARD_TILES)]
+    print(f"[shard] binning + K1, device ms: whole frame {whole_ms:.4f}; bands "
+          + " ".join(f"{v:.4f}" for v in band_ms)
+          + f" (sum {sum(band_ms):.4f}) | {smi}")
+
+    # ---- (b) an NCCL world of one ----
+    check(multihost.initialize(f"127.0.0.1:{free_port()}", num_processes=1,
+                               process_id=0, device=dev),
+          "initialize did not create a process group")
+    launches = dict(band_launches)
+    try:
+        backend = dist.get_backend()
+        check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+              f"the process group's backend is {backend}")
+        mesh = make_mesh(1, 1, device=dev)
+        cfg = GSConfig(iterations=SHARD_STEPS, densify_from_iter=10,
+                       densification_interval=10)
+        kw = dict(pair_cap=SHARD_PAIR_CAP, chunk=SHARD_CHUNK, seed=0)
+        ref = Trainer(clone_params(start), cfg, 2.0, device=dev, **kw)
+        ref_state = ref.run(views)
+        sharded = ShardedTrainer(clone_params(start), cfg, 2.0, mesh,
+                                 device=dev, **kw)
+        steps = []
+        inner = sharded._step
+        sharded._step = lambda *a: steps.append(1) or inner(*a)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        state = sharded.run(views)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_launches = counts()
+        sharded._step = inner
+        xyz_err = float((state.params.xyz - ref_state.params.xyz)
+                        .detach().abs().max())
+        alive_eq = torch.equal(state.params.alive, ref_state.params.alive)
+        print(f"[shard] {backend} world of one, 1 x 1 mesh: ShardedTrainer "
+              f"{SHARD_STEPS} iterations ({len(steps)} steps run) in "
+              f"{run_s:.2f} s host time against Trainer, same seed, budget "
+              f"{SHARD_PAIR_CAP} and chunk: steps {int(state.step)} / "
+              f"{int(ref_state.step)}, alive equal {alive_eq} "
+              f"({int(state.params.num_alive)}), max |d xyz| {xyz_err:.3e}; "
+              f"launches {run_launches}")
+        check(int(state.step) == int(ref_state.step) == SHARD_STEPS
+              and alive_eq and xyz_err <= 2e-4,
+              "ShardedTrainer does not track Trainer")
+        check(all(v == len(steps) for v in run_launches.values()),
+              f"launches {run_launches} for {len(steps)} sharded steps")
+
+        cfg5 = GSConfig(iterations=OVERLAP_STEPS, densify_from_iter=10,
+                        densification_interval=10)
+        batch = ShardedTrainer(clone_params(start), cfg5, 2.0, mesh,
+                               device=dev, **kw)
+        batch_state = batch.run(views)
+        overlapped = ShardedTrainer(clone_params(start), cfg5, 2.0, mesh,
+                                    grad_overlap=True, device=dev, **kw)
+        torch.cuda.synchronize()
+        zero_counts()
+        ovl_state = overlapped.run(views)
+        torch.cuda.synchronize()
+        ovl_launches = counts()
+        # the two sum the loss in another order: an xyz entry whose gradient
+        # is at rounding level may take Adam's +-lr step the other way
+        unit = cfg5.position_lr_init * 2.0
+        d = (ovl_state.params.xyz - batch_state.params.xyz).detach().abs() / unit
+        off, ovl_err = float((d > 0.05).float().mean()), float(d.max()) * unit
+        print(f"[shard] grad_overlap=True, {OVERLAP_STEPS} steps against the "
+              f"batch step: max |d xyz| {ovl_err:.3e} ({ovl_err / unit:.3f} of "
+              f"the xyz lr), share of entries beyond 0.05 lr {off:.2e}, steps "
+              f"{int(ovl_state.step)}; launches {ovl_launches}")
+        check(int(ovl_state.step) == OVERLAP_STEPS and off <= 1e-3
+              and ovl_err <= 2.1 * OVERLAP_STEPS * unit,
+              "the overlapped step disagrees with the batch step")
+        check(all(v == OVERLAP_STEPS for v in ovl_launches.values()),
+              f"launches {ovl_launches} for {OVERLAP_STEPS} overlapped steps")
+
+        # ---- (c) the dry run ----
+        zero_counts()
+        dry = dryrun_multichip(1, device=dev)
+        torch.cuda.synchronize()
+        dry_launches = counts()
+        print(f"[shard] dryrun_multichip(1): {dry}; launches {dry_launches}")
+        check(all(v == 3 for v in dry_launches.values()),
+              f"launches {dry_launches} for the dry run's 3 steps")
+        for part in (run_launches, ovl_launches, dry_launches):
+            launches = {k: launches[k] + part[k] for k in launches}
+
+        # ---- times ----
+        one = lambda tr: (lambda: tr._step(tr.state, *tr._sample(
+            tr._views(views))))
+        ref_step, sharded_step = one(ref), one(sharded)
+        rounds = [(timed(sharded_step, 5), timed(ref_step, 5))
+                  for _ in range(2)]
+        for r, ((s_ms, s_wall), (t_ms, t_wall)) in enumerate(rounds):
+            print(f"[shard] step round {r}: ShardedTrainer 1 x 1 device "
+                  f"{s_ms:.4f} ms, host wall {s_wall:.4f} ms; Trainer device "
+                  f"{t_ms:.4f} ms, host wall {t_wall:.4f} ms | {smi}")
+        peak, base = peak_memory(sharded_step)
+        print(f"[shard] sharded step peak device memory {peak / 2**30:.3f} GiB "
+              f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} "
+              "GiB held before it)")
+    finally:
+        dist.destroy_process_group()
+    return launches, band_t, errs
+
+
+# ---------------------------------------------------------- depth training
+
+DEPTH_STEPS = 5
+DEPTH_BATCH = 2
+
+
+def depth_batch(cfg, seed):
+    """A seeded synthetic (image, depth) batch at the model's input size:
+    crops of phase 9's conditioning image, and a smooth positive depth
+    field of a few low-frequency waves."""
+    h, w = cfg.img_size
+    rng = np.random.default_rng(seed)
+    base = conditioning_image(seed=5).astype(np.float32) / 255.0
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32) / max(h, w)
+    images, depths = [], []
+    for _ in range(DEPTH_BATCH):
+        y0 = int(rng.integers(0, base.shape[0] - h + 1))
+        images.append(base[y0:y0 + h, :w])
+        a, f = rng.uniform(0.2, 1.0, 3), rng.uniform(1.0, 4.0, 3)
+        depths.append(2.0 + a[0] * np.sin(f[0] * xs) + a[1] * np.cos(f[1] * ys)
+                      + a[2] * np.sin(f[2] * (xs + ys)))
+    return (np.stack(images).astype(np.float32),
+            np.stack(depths).astype(np.float32))
+
+
+def depth_training(dev, smi):
+    """Phase 12: DepthTrainer on ZoeD_N at its published geometry."""
+    from luciddreamer_tpu_torch.models.depth_trainer import DepthTrainer
+    from luciddreamer_tpu_torch.models.zoedepth import ZoeDepthConfig
+
+    cfg = ZoeDepthConfig()
+    tr = DepthTrainer(cfg, seed=ZOE_SEED, device=dev)
+    check(all(p.device.type == dev.type for p in tr.params),
+          "a parameter is not on the card")
+    img, depth = depth_batch(cfg, seed=21)
+    probe = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, wall = [], [], []
+    for _ in range(DEPTH_STEPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        losses.append(tr.train_batch(img, depth))
+        b.record()
+        b.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        ms.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(not torch.equal(v, probe[k])
+                for k, v in tr.model.state_dict().items())
+    flops = 3 * sum(zoe_forward_flops(cfg).values()) * DEPTH_BATCH
+    best = min(ms[1:])
+    print(f"[depth] ZoeD_N DepthTrainer, random weights from seed "
+          f"{ZOE_SEED}, batch {DEPTH_BATCH} at {cfg.img_size[0]}x"
+          f"{cfg.img_size[1]}: losses {np.round(losses, 5).tolist()}; "
+          f"{moved} of {len(probe)} tensors moved; step {tr.step}")
+    print(f"[depth] ms per step (device by events / host wall): "
+          + "; ".join(f"{d:.2f} / {h:.2f}" for d, h in zip(ms, wall))
+          + f"; {flops / 1e12:.3f} TFLOP a step (3 x a forward's, per image), "
+          f"{flops / (best * 1e-3) / 1e12:.2f} TFLOP/s at the best step = "
+          f"{flops / (best * 1e-3) / FP32_FLOPS_PER_S:.4f} of the fp32 peak; "
+          f"peak device memory {peak / 2**30:.3f} GiB | {smi}")
+    check(all(np.isfinite(losses)) and tr.step == DEPTH_STEPS,
+          "a depth training loss is not finite")
+    check(moved > 0.5 * len(probe), "the parameters did not change")
+
+    bad = depth.copy()
+    bad[0, 10, 10] = np.nan
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    nan_loss = tr.train_batch(img, bad)
+    unchanged = all(torch.equal(v, before[k])
+                    for k, v in tr.model.state_dict().items())
+    print(f"[depth] a batch with a NaN depth: loss {nan_loss}, step "
+          f"{tr.step}, parameters unchanged: {unchanged}")
+    check(not np.isfinite(nan_loss) and tr.step == DEPTH_STEPS and unchanged,
+          "a NaN batch committed an update")
+    del tr, before, probe
+
+    # the tiny configuration: one step on the card against the CPU's
+    tiny = ZoeDepthConfig.tiny()
+    cpu = DepthTrainer(tiny, seed=0, device="cpu")
+    gpu = DepthTrainer(tiny, seed=0, device=dev)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    start = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    timg, tdep = depth_batch(tiny, seed=22)
+    l_cpu, l_gpu = cpu.train_batch(timg, tdep), gpu.train_batch(timg, tdep)
+    lr = cpu.schedule(0)
+    off, total, worst = 0, 0, 0.0
+    for k, v in cpu.model.state_dict().items():
+        d = ((gpu.model.state_dict()[k].cpu() - start[k])
+             - (v - start[k])).abs() / lr
+        off += int((d > 0.05).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    print(f"[depth] tiny ZoeDepth, one step on the card against the CPU: "
+          f"loss {l_gpu:.6f} / {l_cpu:.6f}; updates differ by more than "
+          f"0.05 lr on {off} of {total} entries, at most {worst:.3f} lr")
+    check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu) and off <= 1e-3 * total
+          and worst <= 2.1, "the card's step disagrees with the CPU's")
+    return {"ms": ms, "peak": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAILED: no CUDA device", file=sys.stderr)
@@ -1399,13 +1847,16 @@ def main() -> int:
         del app
         dream, radial_dream_s = dream_to_video(dev)
         zoe = depth_model(dev, radial_dream_s)
+        shard, shard_band, shard_errs = sharded_training(cams, dev, smi)
+        depth_training(dev, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(f"[done] all phases in {time.time() - t_start:.1f} s")
 
     source = "luciddreamer_tpu_torch/csrc/{}.cu".format
-    launches = {k: train["launches"][k] + dream[k] + zoe[k] for k in KERNELS}
+    launches = {k: train["launches"][k] + dream[k] + zoe[k] + shard[k]
+                for k in KERNELS}
     launches["blend_fwd"] += k1["serve_launches"]
     rows = [
         {"name": "blend_fwd", "route": "cuda", "source": source("blend_fwd"),
@@ -1426,7 +1877,8 @@ def main() -> int:
     ]
     print(f"[done] launches by path: serving {{'blend_fwd': "
           f"{k1['serve_launches']}}}, training {train['launches']}, dream to "
-          f"video {dream}, dream with ZoeD_N {zoe}")
+          f"video {dream}, dream with ZoeD_N {zoe}, sharded training "
+          f"{shard}; K1-K3 on band {shard_band}: max |d| {shard_errs}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

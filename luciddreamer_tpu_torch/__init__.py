@@ -4,8 +4,11 @@ This package holds the whole app (``app.LucidDreamerTPU`` and ``cli``: one
 image and a prompt -> a dreamed point cloud (``dream/``) -> baked Gaussians
 -> videos), the serving path (load a Gaussian scene from a PLY file and
 render a camera path through the tiled renderer), the training path
-(``train.loop.Trainer``: render, loss, backward, Adam, densify/prune) and
-ZoeDepth inference (``models/``: ZoeD_N, ZoeD_K, ZoeD_NK).  The
+(``train.loop.Trainer``: render, loss, backward, Adam, densify/prune), its
+multi-device form on ``torch.distributed`` (``parallel/``: tile-row bands
+over a (data, tiles) mesh of processes, ``ShardedTrainer``), and ZoeDepth
+inference and training (``models/``: ZoeD_N, ZoeD_K, ZoeD_NK,
+``depth_trainer``).  The
 renderer's forward and backward tile blend and the cotangent column repack
 of its binning are hand-written CUDA kernels (``csrc/blend_fwd.cu``,
 ``csrc/blend_bwd.cu``, ``csrc/repack_cols.cu``).  It imports ``torch``,

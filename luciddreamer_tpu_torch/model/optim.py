@@ -46,17 +46,25 @@ def adam_init(params: dict) -> AdamState:
 def adam_update(params: dict, grads: dict, state: AdamState, lrs: dict):
     """One Adam step.  ``lrs``: name -> lr, a float or a 0-d tensor."""
     count = state.count + 1
-    t = count.to(torch.float32)
-    c1 = 1.0 - torch.pow(BETA1, t)
-    c2 = 1.0 - torch.pow(BETA2, t)
+    c1, c2 = bias_corrections(count)
     new_p, new_m, new_v = {}, {}, {}
     for k in params:
-        g = grads[k]
-        m = BETA1 * state.mu[k] + (1.0 - BETA1) * g
-        v = BETA2 * state.nu[k] + (1.0 - BETA2) * (g * g)
-        step = lrs[k] * (m / c1) / (torch.sqrt(v / c2) + EPS)
-        new_p[k], new_m[k], new_v[k] = params[k] - step, m, v
+        new_p[k], new_m[k], new_v[k] = adam_leaf(
+            params[k], grads[k], state.mu[k], state.nu[k], lrs[k], c1, c2)
     return new_p, AdamState(count=count, mu=new_m, nu=new_v)
+
+
+def bias_corrections(count: torch.Tensor):
+    """(1 - beta1^t, 1 - beta2^t) for the update count ``t`` after the step."""
+    t = count.to(torch.float32)
+    return 1.0 - torch.pow(BETA1, t), 1.0 - torch.pow(BETA2, t)
+
+
+def adam_leaf(p, g, m, v, lr, c1, c2):
+    """Adam on one tensor: (new value, new first moment, new second)."""
+    m = BETA1 * m + (1.0 - BETA1) * g
+    v = BETA2 * v + (1.0 - BETA2) * (g * g)
+    return p - lr * (m / c1) / (torch.sqrt(v / c2) + EPS), m, v
 
 
 def xyz_lr_schedule(cfg: GSConfig, spatial_lr_scale: float):

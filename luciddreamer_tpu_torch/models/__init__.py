@@ -1,4 +1,5 @@
-"""Neural models: the ZoeDepth monodepth stack (inference).
+"""Neural models: the ZoeDepth monodepth stack (inference, and training in
+``depth_trainer`` with ``depth_losses``, ``depth_eval`` and ``depth_data``).
 
 ``ZoeDepth`` mirrors the JAX package's ``FlaxZoeDepth``, ``ZoeDepthNK``
 its ``FlaxZoeDepthNK`` and ``ZoeDepthEstimator`` its

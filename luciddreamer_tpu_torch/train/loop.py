@@ -54,6 +54,92 @@ def sh_band_mask(active_degree, n_rest: int, device=None) -> torch.Tensor:
     return (band <= active_degree).to(torch.float32)[:, None]
 
 
+def view_loss(img, gt_image, depth, gt_depth, cfg: GSConfig):
+    """(1 - lambda_dssim) L1 + lambda_dssim (1 - SSIM), plus lambda_depth
+    times the depth L1 over the pixels where both depths are positive when
+    ``gt_depth`` is given.  For one view (3, H, W) or a batch (B, 3, H, W):
+    L1 and SSIM are means over every pixel of the batch, the depth term's
+    mask count is the batch's."""
+    loss = (1.0 - cfg.lambda_dssim) * l1_loss(img, gt_image) + \
+        cfg.lambda_dssim * (1.0 - ssim(img, gt_image))
+    if cfg.lambda_depth > 0.0 and gt_depth is not None:
+        dmask = (gt_depth > 0) & (depth > 0)
+        dl = torch.sum(torch.abs(depth - gt_depth) * dmask) / (
+            torch.sum(dmask) + 1e-8
+        )
+        loss = loss + cfg.lambda_depth * dl
+    return loss
+
+
+def loss_and_grads(state: TrainState, loss_fn):
+    """Differentiate ``loss_fn(render_params, mean2d_offset) -> (loss,
+    aux)`` at ``state`` under the SH warm-up mask of its next step: (the
+    detached loss, aux, the gradients by group name, dL/d mean2d_offset)."""
+    it = state.step + 1                       # 1-based iteration
+    max_deg = state.params.max_sh_degree
+    active_deg = torch.clamp_max(it // 1000, max_deg)
+    n_rest = (max_deg + 1) ** 2 - 1
+    sh_mask = sh_band_mask(active_deg, n_rest, device=state.step.device)
+    p = state.params.param_dict()
+    # the masked SH rest is the render's leaf; d/d(raw) = d/d(masked) * mask
+    render_params = GaussianParams.from_param_dict(
+        dict(p, f_rest=p["f_rest"] * sh_mask[None]), state.params.alive
+    )
+    offset = torch.zeros_like(p["xyz"][:, :2], requires_grad=True)
+    loss, aux = loss_fn(render_params, offset)
+    g = torch.autograd.grad(
+        loss,
+        [render_params.xyz, render_params.features_dc,
+         render_params.features_rest, render_params.scaling,
+         render_params.rotation, render_params.opacity, offset],
+        allow_unused=True, materialize_grads=True,
+    )
+    grads = dict(zip(GROUPS, g[:-1]))
+    grads["f_rest"] = grads["f_rest"] * sh_mask[None]
+    return loss.detach(), aux, grads, g[-1]
+
+
+def select_state(ovf: torch.Tensor, new: TrainState,
+                 old: TrainState) -> TrainState:
+    """``old`` where the device bool ``ovf`` is set, else ``new``: an update
+    computed from a truncated pair list is never committed."""
+    keep = lambda n, o: torch.where(ovf, o, n)
+    pdict, old_p = new.params.param_dict(), old.params.param_dict()
+    return TrainState(
+        params=GaussianParams.from_param_dict(
+            {k: keep(pdict[k], old_p[k]) for k in pdict}, old.params.alive),
+        adam=AdamState(
+            count=keep(new.adam.count, old.adam.count),
+            mu={k: keep(new.adam.mu[k], old.adam.mu[k]) for k in pdict},
+            nu={k: keep(new.adam.nu[k], old.adam.nu[k]) for k in pdict},
+        ),
+        stats=DensifyStats(
+            grad_accum=keep(new.stats.grad_accum, old.stats.grad_accum),
+            denom=keep(new.stats.denom, old.stats.denom),
+            max_radii2d=keep(new.stats.max_radii2d, old.stats.max_radii2d),
+        ),
+        step=keep(new.step, old.step),
+    )
+
+
+@torch.no_grad()
+def apply_update(state: TrainState, grads: dict, g2d, radii, ovf,
+                 cfg: GSConfig, extent: float) -> TrainState:
+    """Adam on every group, the densification statistics and the step
+    count, selected away on the device when ``ovf`` is set."""
+    it = state.step + 1
+    pdict = state.params.param_dict()
+    lrs = learning_rates(cfg, extent, it - 1)
+    new_p, adam = adam_update(pdict, grads, state.adam, lrs)
+    new = TrainState(
+        params=GaussianParams.from_param_dict(new_p, state.params.alive),
+        adam=adam,
+        stats=add_densification_stats(state.stats, g2d, radii),
+        step=it,
+    )
+    return select_state(ovf, new, state)
+
+
 class _HostFlag:
     """A device bool that the host reads later without a sync in between:
     a pinned host copy recorded behind a CUDA event."""
@@ -126,76 +212,24 @@ class Trainer:
             chunk=self.chunk, pair_cap=self.pair_cap, backend=self.backend,
             mean2d_offset=mean2d_offset,
         )
-        img = out["render"]
-        ll1 = l1_loss(img, gt_image)
-        loss = (1.0 - self.cfg.lambda_dssim) * ll1 + self.cfg.lambda_dssim * (
-            1.0 - ssim(img, gt_image)
-        )
-        if self.cfg.lambda_depth > 0.0 and gt_depth is not None:
-            dmask = (gt_depth > 0) & (out["depth"] > 0)
-            dl = torch.sum(torch.abs(out["depth"] - gt_depth) * dmask) / (
-                torch.sum(dmask) + 1e-8
-            )
-            loss = loss + self.cfg.lambda_depth * dl
+        loss = view_loss(out["render"], gt_image, out["depth"], gt_depth,
+                         self.cfg)
         aux = {"radii": out["radii"], "overflow": out["overflow"]}
         return loss, aux
 
     def _loss_and_grads(self, state: TrainState, camera: Camera, gt_image,
                         gt_depth):
         """(loss, aux, grads by group name, dL/d mean2d_offset)."""
-        it = state.step + 1                   # 1-based iteration
-        active_deg = torch.clamp_max(it // 1000, self.max_sh_degree)
-        n_rest = (self.max_sh_degree + 1) ** 2 - 1
-        sh_mask = sh_band_mask(active_deg, n_rest, device=state.step.device)
-        p = state.params.param_dict()
-        # the masked SH rest is the render's leaf; d/d(raw) = d/d(masked) * mask
-        render_params = GaussianParams.from_param_dict(
-            dict(p, f_rest=p["f_rest"] * sh_mask[None]), state.params.alive
-        )
-        offset = torch.zeros_like(p["xyz"][:, :2], requires_grad=True)
-        loss, aux = self._render_loss(render_params, offset, camera, gt_image,
-                                      gt_depth)
-        g = torch.autograd.grad(
-            loss,
-            [render_params.xyz, render_params.features_dc,
-             render_params.features_rest, render_params.scaling,
-             render_params.rotation, render_params.opacity, offset],
-            allow_unused=True, materialize_grads=True,
-        )
-        grads = dict(zip(GROUPS, g[:-1]))
-        grads["f_rest"] = grads["f_rest"] * sh_mask[None]
-        return loss.detach(), aux, grads, g[-1]
+        return loss_and_grads(
+            state, lambda p, off: self._render_loss(p, off, camera, gt_image,
+                                                    gt_depth))
 
     def _step(self, state: TrainState, camera: Camera, gt_image, gt_depth):
         loss, aux, grads, g2d = self._loss_and_grads(state, camera, gt_image,
                                                      gt_depth)
-        it = state.step + 1
-        with torch.no_grad():
-            pdict = state.params.param_dict()
-            lrs = learning_rates(self.cfg, self.extent, it - 1)
-            new_p, adam = adam_update(pdict, grads, state.adam, lrs)
-            stats = add_densification_stats(state.stats, g2d, aux["radii"])
-            # never commit an update computed from a truncated pair list
-            ovf = aux["overflow"]
-            keep = lambda new, old: torch.where(ovf, old, new)
-            new_state = TrainState(
-                params=GaussianParams.from_param_dict(
-                    {k: keep(new_p[k], pdict[k]) for k in pdict},
-                    state.params.alive,
-                ),
-                adam=AdamState(
-                    count=keep(adam.count, state.adam.count),
-                    mu={k: keep(adam.mu[k], state.adam.mu[k]) for k in pdict},
-                    nu={k: keep(adam.nu[k], state.adam.nu[k]) for k in pdict},
-                ),
-                stats=DensifyStats(
-                    grad_accum=keep(stats.grad_accum, state.stats.grad_accum),
-                    denom=keep(stats.denom, state.stats.denom),
-                    max_radii2d=keep(stats.max_radii2d, state.stats.max_radii2d),
-                ),
-                step=keep(it, state.step),
-            )
-        return new_state, loss, ovf
+        new_state = apply_update(state, grads, g2d, aux["radii"],
+                                 aux["overflow"], self.cfg, self.extent)
+        return new_state, loss, aux["overflow"]
 
     def _densify(self, state: TrainState, max_screen_size):
         params, adam, stats, ovf = densify_and_prune(
@@ -237,6 +271,10 @@ class Trainer:
                          None if depth is None else f32(depth)))
         return norm
 
+    def _sample(self, norm):
+        """The next step's view: (camera, image, depth or None)."""
+        return norm[self.py_rng.integers(len(norm))]
+
     def run(self, views, iterations: int | None = None, callback=None,
             log_every: int = 0, timer=None):
         """Train for ``iterations`` (default cfg.iterations) committed steps.
@@ -261,10 +299,10 @@ class Trainer:
         while launched < iterations:
             it += 1
             launched += 1
-            cam, img, depth = norm[self.py_rng.integers(len(norm))]
+            view = self._sample(norm)
             with (timer.phase("train_step") if timer is not None
                   else contextlib.nullcontext()):
-                self.state, loss, ovf = self._step(self.state, cam, img, depth)
+                self.state, loss, ovf = self._step(self.state, *view)
 
             # the PREVIOUS step's overflow flag (one-step lag): an overflowed
             # step changed nothing, so un-count it; only the first flag of a
@@ -279,8 +317,8 @@ class Trainer:
 
             if cfg.debug and not bool(torch.isfinite(loss)):
                 check_finite(
-                    {"params": self.state.params.param_dict(), "gt": img,
-                     "camera": {"view": cam.viewmatrix}},
+                    {"params": self.state.params.param_dict(), "gt": view[1],
+                     "camera": view[0]},
                     outdir="debug_snapshots", tag=f"train_it{it}",
                 )
                 raise FloatingPointError(f"non-finite loss at iteration {it}")
@@ -315,7 +353,7 @@ class Trainer:
             if p_flag.read():
                 if p_gen == self._cap_gen:
                     self._grow_pair_cap()
-                cam, img, depth = norm[self.py_rng.integers(len(norm))]
-                self.state, loss, ovf = self._step(self.state, cam, img, depth)
+                self.state, loss, ovf = self._step(self.state,
+                                                   *self._sample(norm))
                 pending = (_HostFlag(ovf), self._cap_gen)
         return self.state

@@ -2,8 +2,13 @@
 carried into ``luciddreamer_tpu_torch`` on the CPU, and back to numpy, and
 the golden pipeline run through either package."""
 import os
+import socket
+import subprocess
+import sys
+import time
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -65,6 +70,30 @@ def assert_scaled_close(out, ref, atol, err_msg=""):
     scale = np.abs(ref).max() + 1e-8
     np.testing.assert_allclose(out / scale, ref / scale, atol=atol, rtol=0,
                                err_msg=err_msg)
+
+
+def jax_tree(model, x_shape, seed, noise=0.05):
+    """A parameter tree of ``model`` for inputs of ``x_shape``: flax's
+    initial values plus seeded noise on every leaf, the ViT's k bias 0."""
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                            jnp.zeros(x_shape, jnp.float32))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        keys = [p.key for p in path]
+        if keys[-1] == "kernel":
+            base = rng.normal(size=s.shape) / np.sqrt(np.prod(s.shape[:-1]))
+        elif keys[-1] in ("scale", "gamma1", "gamma2"):
+            base = np.ones(s.shape)
+        else:
+            base = np.zeros(s.shape)
+        v = (base + noise * rng.normal(size=s.shape)).astype(np.float32)
+        if keys[-2:] == ["qkv", "bias"] and "attn" in keys:
+            third = s.shape[0] // 3
+            v[third : 2 * third] = 0.0
+        return v
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 @pytest.fixture
@@ -152,3 +181,60 @@ def golden_run(which, save_dir, dream_seed=1, **create_kw):
         "depth_posfrac": np.asarray([(d > 0).mean() for d in depths]),
     }
     return stats, ply_path, ld
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class GlooWorld:
+    """``n`` CPU processes that run the script ``source`` as the ranks of one
+    gloo world, started at once: each gets argv ``rank n port *args`` and
+    writes ``rank<r>.npz`` into ``out_dir``.  The workers import neither JAX
+    nor this module, and run on one torch thread (the script sets it)."""
+
+    def __init__(self, source: str, n: int, out_dir, args=(), timeout=300):
+        self.out_dir = str(out_dir)
+        os.makedirs(self.out_dir, exist_ok=True)
+        script = os.path.join(self.out_dir, "worker.py")
+        with open(script, "w") as f:
+            f.write(source)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("XLA_FLAGS", "JAX_PLATFORMS", "PYTHONPATH",
+                            "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+        env["OMP_NUM_THREADS"] = "1"
+        port = free_port()
+        self.logs = [os.path.join(self.out_dir, f"rank{r}.log") for r in range(n)]
+        self.procs = []
+        for r in range(n):
+            with open(self.logs[r], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, script, str(r), str(n), str(port),
+                     *map(str, args)],
+                    env=env, stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
+        self.deadline = time.monotonic() + timeout
+        self.results = None
+
+    def wait(self) -> list:
+        """Every rank's results (a dict of arrays each); fails the test when
+        a rank fails or the world outlives its timeout."""
+        if self.results is None:
+            try:
+                for p in self.procs:
+                    p.wait(timeout=max(1.0, self.deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                for p in self.procs:
+                    p.kill()
+                pytest.fail(f"a gloo world in {self.out_dir} timed out")
+            for p, log in zip(self.procs, self.logs):
+                if p.returncode != 0:
+                    pytest.fail(f"rank failed ({p.returncode}):\n"
+                                + open(log).read()[-4000:])
+            self.results = [dict(np.load(os.path.join(self.out_dir,
+                                                      f"rank{r}.npz")))
+                            for r in range(len(self.procs))]
+        return self.results

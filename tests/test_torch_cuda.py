@@ -237,3 +237,58 @@ def test_trainer_steps_on_the_card(dev):
     assert int(state.params.num_alive) != 500
     assert np.isfinite(losses).all()
     assert np.mean(losses[5:8]) < np.mean(losses[:3])
+
+
+def _bands(params, cam, n, backend="cuda"):
+    from luciddreamer_tpu_torch.parallel.sharded import _render_rows
+
+    rows = H // 16 // n
+    return [_render_rows(params, cam, torch.zeros(3, device=params.xyz.device),
+                         t * rows, rows, active_sh_degree=3, tile_size=16,
+                         chunk=128, pair_cap=8 * params.capacity,
+                         backend=backend) for t in range(n)]
+
+
+def test_band_decomposition_matches_the_whole_render(dev):
+    """The tile-row bands of parallel.sharded, each through K1, stitch into
+    the whole frame's render; K1 on each band against its plain version."""
+    params = _scene(2000, 5, dev)
+    cam = _camera(dev)
+    with torch.no_grad():
+        whole = render_tiled(params, cam, torch.zeros(3, device=dev), chunk=128)
+        bands = _bands(params, cam, 4)
+        plain = _bands(params, cam, 4, backend="torch")
+    assert not any(bool(b["overflow"]) for b in bands)
+    for k, dim in (("render", 1), ("depth", 0), ("acc", 0), ("n_contrib", 0)):
+        torch.testing.assert_close(torch.cat([b[k] for b in bands], dim),
+                                   whole[k], atol=1e-5, rtol=0)
+    for b, p in zip(bands, plain):
+        assert torch.equal(b["radii"], whole["radii"])
+        assert torch.equal(b["n_contrib"], p["n_contrib"])
+        torch.testing.assert_close(b["render"], p["render"], atol=1e-5, rtol=0)
+
+
+def test_band_gradients_sum_to_the_whole_gradient(dev):
+    """K1 forward, K2 backward and K3 in the binning VJP on each band: the
+    bands' gradients sum to the whole render's, each launched once a band."""
+    params = _scene(2000, 6, dev)
+    cam = _camera(dev)
+    w = torch.randn((3, H, W), generator=torch.Generator(device=dev)
+                    .manual_seed(1), device=dev)
+
+    def grads(loss):
+        return torch.autograd.grad(loss, list(params.parameters()))
+
+    ref = grads(torch.sum(render_tiled(params, cam, torch.zeros(3, device=dev),
+                                       chunk=128)["render"] * w))
+    for c in (cuda_blend.blend_fwd, cuda_blend.blend_bwd,
+              cuda_repack.repack_cols):
+        c.launches = 0
+    rows = H // 4
+    got = grads(sum(torch.sum(b["render"] * w[:, t * rows:(t + 1) * rows])
+                    for t, b in enumerate(_bands(params, cam, 4))))
+    assert (cuda_blend.blend_fwd.launches, cuda_blend.blend_bwd.launches,
+            cuda_repack.repack_cols.launches) == (4, 4, 4)
+    for g, r in zip(got, ref):
+        scale = float(r.abs().max()) + 1e-12
+        assert float((g - r).abs().max()) <= 5e-4 * scale

@@ -49,7 +49,9 @@ from luciddreamer_tpu_torch.models.zoedepth import (
     ZoeDepthEstimator,
 )
 from luciddreamer_tpu_torch.models.zoedepth_nk import ZoeDepthNK
-from tests.port_helpers import np_, one_torch_thread  # noqa: F401  (a fixture)
+from tests.port_helpers import (  # noqa: F401  (one_torch_thread: a fixture)
+    jax_tree, np_, one_torch_thread,
+)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -73,30 +75,6 @@ def configs(name):
     return (dataclasses.replace(JZoeCfg.tiny(), vit=JViT(**vit), img_size=size),
             dataclasses.replace(ZoeDepthConfig.tiny(), vit=ViTConfig(**vit),
                                 img_size=size))
-
-
-def jax_tree(model, x_shape, seed, noise=0.05):
-    """A parameter tree of ``model`` for inputs of ``x_shape``: flax's
-    initial values plus seeded noise on every leaf, the ViT's k bias 0."""
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            jnp.zeros(x_shape, jnp.float32))
-    rng = np.random.default_rng(seed)
-
-    def leaf(path, s):
-        keys = [p.key for p in path]
-        if keys[-1] == "kernel":
-            base = rng.normal(size=s.shape) / np.sqrt(np.prod(s.shape[:-1]))
-        elif keys[-1] in ("scale", "gamma1", "gamma2"):
-            base = np.ones(s.shape)
-        else:
-            base = np.zeros(s.shape)
-        v = (base + noise * rng.normal(size=s.shape)).astype(np.float32)
-        if keys[-2:] == ["qkv", "bias"] and "attn" in keys:
-            third = s.shape[0] // 3
-            v[third : 2 * third] = 0.0
-        return v
-
-    return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 def images(rng, n, h, w):
