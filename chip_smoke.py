@@ -146,19 +146,55 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    against the CPU (loss within 1e-4 relative, updates within 0.05 lr on
    >= 99.9% of entries).
 
+13. The SIBR viewer bridge: phase 3's 1M scene read again from its PLY
+   file, a ``ViewerServer(port=0)`` on 127.0.0.1 and a fake SIBR client
+   thread that connects, signals, and sends 30 requests for llff frames
+   0-29 at 512x512 over one connection (the glm-transposed, y/z-flipped
+   matrices the viewer sends); the server answers each through
+   ``serve_once``, polling with 1 ms sleeps until a deadline.  Every reply
+   byte-equal to a direct ``render_tiled(backend="cuda")`` of the camera
+   ``camera_from_message`` builds, every such camera within 1e-6 of its
+   source, the replies not blank, K1 launched once per request.  Prints
+   the round trip per request (send to last byte, host wall): median, max
+   and the first.
+14. The Gradio UI at the app's own defaults: ``app_gradio.build_demo``
+   under a stand-in ``gradio`` module (``gradio_stub``: components record
+   their arguments, buttons their bindings), and stand-ins for imageio and
+   matplotlib where those are not installed (``video_stand_ins``: an mp4
+   written through OpenCV, matplotlib's jet table).  "Run all" on phase
+   9's image, prompt "", ``lookdown``, ``llff``, seed 1, 30 inpainting
+   steps, the classic inpainter, radial depth and "SD1.5 (default)": the
+   2,990-step bake (densify every 100 steps from step 600), capacity 1.2M,
+   pair budget 6M, then the 400 llff frames; then "Render video" for
+   ``back_and_forth`` (201 frames), then "Render video" with the depth
+   dropdown changed, which must raise ``gr.Error``.  Both videos and the
+   PLY file written and not empty, every loss finite, the PSNR of training
+   view 0 risen, K2 and K3 launched once per step and K1 once per step
+   and frame.  Prints ``create``'s stages, ms per bake step (events, host
+   wall), live Gaussians against the capacity, the pairs of the training
+   views against the budget, the overflowed steps, the densify statistic
+   against its threshold, ms per frame of each video, the files and the
+   peak memory; then holds K1-K3 against their plain versions on the baked
+   scene as phase 9 does.
+
 Prints the kernels line (``launches``: the sum of each kernel's counts
-over the five main-path runs, phases 3, 7, 9, 10 and 11) and the card line,
-then the result line last.
+over the seven main-path runs, phases 3, 7, 9, 10, 11, 13 and 14) and the
+card line, then the result line last.
 Exits non-zero, printing no result, when any phase fails or no CUDA device
 is present.
 """
+import contextlib
 import ctypes
+import importlib.util
 import json
 import re
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -388,8 +424,9 @@ def check_large_frame(params, cam, bg, tag, pair_cap=None):
     return err["render"]
 
 
-def serving(bg, dev):
-    """Phases 2-5; returns (app, cams, K1 serving record)."""
+def serving(bg, dev, ply_path):
+    """Phases 2-5; returns (app, cams, K1 serving record).  The 1M scene is
+    saved to ``ply_path``, where phase 13 reads it again."""
     from luciddreamer_tpu_torch.app import LucidDreamerTPU
     from luciddreamer_tpu_torch.core.transforms import make_camera
     from luciddreamer_tpu_torch.model.ply import save_ply
@@ -415,11 +452,8 @@ def serving(bg, dev):
     t0 = time.time()
     scene = make_scene(P_FULL, seed=42, device="cpu")
     app = LucidDreamerTPU(device="cuda")
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        path = str(Path(tmp) / "scene.ply")
-        save_ply(scene, path)
-        app.load_ply(path)
+    save_ply(scene, str(ply_path))
+    app.load_ply(str(ply_path))
     check(app.params.capacity == P_FULL and app.params.xyz.is_cuda,
           "PLY round trip did not give the 1M scene on the card")
     check(torch.equal(app.params.xyz.cpu(), scene.xyz.detach()),
@@ -781,84 +815,117 @@ def conditioning_image(seed):
     return (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
 
 
+@contextlib.contextmanager
+def wrapped(owner, name, wrapper):
+    """Replace ``owner.name`` by ``wrapper(original)`` inside the block."""
+    original = getattr(owner, name)
+    setattr(owner, name, wrapper(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+@contextlib.contextmanager
+def installed(modules):
+    """Put ``modules`` (name -> module) into ``sys.modules`` inside the
+    block; afterwards each name holds what it held before, or nothing."""
+    saved = {name: sys.modules.get(name) for name in modules}
+    sys.modules.update(modules)
+    try:
+        yield
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                del sys.modules[name]
+            else:
+                sys.modules[name] = module
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """Record every ``Trainer._step`` of the block: its CUDA events and
+    loss, and a copy of the scene before the first update (``"start"``)."""
+    from luciddreamer_tpu_torch.train.loop import Trainer
+
+    record = {"losses": [], "events": []}
+
+    def wrapper(step):
+        def counted_step(self, state, *a):
+            if not record["events"]:
+                record["start"] = clone_params(state.params)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            out = step(self, state, *a)
+            end.record()
+            record["events"].append((start, end))
+            record["losses"].append(out[1])
+            return out
+        return counted_step
+
+    with wrapped(Trainer, "_step", wrapper):
+        yield record
+
+
+def view0_psnr(params, view):
+    """PSNR of ``params`` rendered at a training view, through the plain
+    blend (no launch is counted)."""
+    from luciddreamer_tpu_torch.render.tiled import render_tiled
+    from luciddreamer_tpu_torch.train.losses import psnr
+
+    dev = params.xyz.device
+    with torch.no_grad():
+        out = render_tiled(params, view.camera, torch.zeros(3, device=dev),
+                           backend="torch")
+    return float(psnr(out["render"], torch.as_tensor(view.image, device=dev)))
+
+
 def dream_to_video(dev):
     """Phase 9: the app's dream -> bake -> video path; returns each kernel's
     launches in it and the dream loop's seconds."""
     from luciddreamer_tpu_torch import app as app_mod
     from luciddreamer_tpu_torch.config import GSConfig
-    from luciddreamer_tpu_torch.core.types import GaussianParams
     from luciddreamer_tpu_torch.model.ply import load_ply
-    from luciddreamer_tpu_torch.render import cuda_blend, cuda_repack
-    from luciddreamer_tpu_torch.render.tiled import render_tiled
-    from luciddreamer_tpu_torch.train.loop import Trainer
-    from luciddreamer_tpu_torch.train.losses import psnr
     from luciddreamer_tpu_torch.utils import PhaseTimer
     from luciddreamer_tpu_torch.video import render_frames
 
     image = conditioning_image(seed=5)
     prompt = (ROOT / "examples" / "waterfall.txt").read_text().splitlines()[0]
-    marks, record = {}, {"losses": [], "events": []}
+    marks = {}
 
     def progress(stage, i, n):
         if stage not in marks:
             torch.cuda.synchronize()
             marks[stage] = time.perf_counter()
 
-    def counted_step(self, state, *a):
-        if not record["events"]:
-            # the scene create_from_pcd made, before the first update
-            record["start"] = GaussianParams.from_param_dict(
-                {k: v.clone() for k, v in state.params.param_dict().items()},
-                state.params.alive.clone())
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-            enable_timing=True)
-        start.record()
-        out = step(self, state, *a)
-        end.record()
-        record["events"].append((start, end))
-        record["losses"].append(out[1])
-        return out
-
-    def view0_psnr(params, view):
-        with torch.no_grad():    # the plain blend: no launch is counted
-            out = render_tiled(params, view.camera, torch.zeros(3, device=dev),
-                               backend="torch")
-        return float(psnr(out["render"], torch.as_tensor(view.image, device=dev)))
-
-    step = Trainer._step
-    Trainer._step = counted_step
     cfg = GSConfig(iterations=DREAM_ITERS, position_lr_max_steps=DREAM_ITERS,
                    densify_from_iter=50, densification_interval=25)
     timer = PhaseTimer()
     bg = torch.zeros(3, device=dev)
-    try:
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-            app = app_mod.LucidDreamerTPU(gs_config=cfg, save_dir=tmp,
-                                          device="cuda")
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            counters = (cuda_blend.blend_fwd, cuda_blend.blend_bwd,
-                        cuda_repack.repack_cols)
-            for c in counters:
-                c.launches = 0
-            t0 = time.perf_counter()
-            ply = app.create(image, prompt, "", "lookdown", seed=1,
-                             diff_steps=30, progress_callback=progress,
-                             timer=timer)
-            torch.cuda.synchronize()
-            create_s = time.perf_counter() - t0
-            cams = app.scene.get_preset_cameras("llff")
-            t1 = time.perf_counter()
-            rgbs, depths = render_frames(app.params, cams, [0.0, 0.0, 0.0],
-                                         active_sh_degree=3, device="cuda")
-            torch.cuda.synchronize()
-            video_s = time.perf_counter() - t1
-            launches = {c.__name__: c.launches for c in counters}
-            peak = torch.cuda.max_memory_allocated()
-            alive = int(app.params.num_alive)
-            reloaded = load_ply(ply, device="cuda")
-    finally:
-        Trainer._step = step
+    with recorded_steps() as record, tempfile.TemporaryDirectory(
+            dir=ROOT / "build") as tmp:
+        app = app_mod.LucidDreamerTPU(gs_config=cfg, save_dir=tmp,
+                                      device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        ply = app.create(image, prompt, "", "lookdown", seed=1,
+                         diff_steps=30, progress_callback=progress,
+                         timer=timer)
+        torch.cuda.synchronize()
+        create_s = time.perf_counter() - t0
+        cams = app.scene.get_preset_cameras("llff")
+        t1 = time.perf_counter()
+        rgbs, depths = render_frames(app.params, cams, [0.0, 0.0, 0.0],
+                                     active_sh_degree=3, device="cuda")
+        torch.cuda.synchronize()
+        video_s = time.perf_counter() - t1
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        alive = int(app.params.num_alive)
+        reloaded = load_ply(ply, device="cuda")
 
     steps = len(record["losses"])
     losses = [float(v) for v in record["losses"]]
@@ -977,8 +1044,6 @@ def depth_model(dev, radial_dream_s):
     from luciddreamer_tpu_torch.models.zoedepth import (
         ZoeDepth, ZoeDepthConfig, ZoeDepthEstimator, init_random_)
     from luciddreamer_tpu_torch.models.zoedepth_nk import ZoeDepthNK
-    from luciddreamer_tpu_torch.render import cuda_blend, cuda_repack
-    from luciddreamer_tpu_torch.train.loop import Trainer
     from luciddreamer_tpu_torch.trajectory import get_pcdgen_poses
     from luciddreamer_tpu_torch.video import render_frames
 
@@ -1076,44 +1141,33 @@ def depth_model(dev, radial_dream_s):
 
     register_depth_estimator(ZOE_DEPTH_NAME, lambda device=None: counted_depth)
     prompt = (ROOT / "examples" / "waterfall.txt").read_text().splitlines()[0]
-    marks, losses = {}, []
+    marks = {}
 
     def progress(stage, i, n):
         if stage not in marks:
             torch.cuda.synchronize()
             marks[stage] = time.perf_counter()
 
-    def counted_step(self, state, *a):
-        out = step(self, state, *a)
-        losses.append(out[1])
-        return out
-
-    step = Trainer._step
-    Trainer._step = counted_step
     gs_cfg = GSConfig(iterations=ZOE_BAKE_STEPS,
                       position_lr_max_steps=ZOE_BAKE_STEPS,
                       densify_from_iter=50, densification_interval=25)
-    counters = (cuda_blend.blend_fwd, cuda_blend.blend_bwd,
-                cuda_repack.repack_cols)
-    try:
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-            app = app_mod.LucidDreamerTPU(
-                gs_config=gs_cfg, save_dir=tmp, device="cuda",
-                dream_config=DreamConfig(depth_estimator=ZOE_DEPTH_NAME))
-            for c in counters:
-                c.launches = 0
-            t0 = time.perf_counter()
-            app.create(conditioning_image(seed=5), prompt, "", "lookdown",
-                       seed=1, diff_steps=30, progress_callback=progress)
-            torch.cuda.synchronize()
-            create_s = time.perf_counter() - t0
-            cams = app.scene.get_preset_cameras("llff")[:ZOE_FRAMES]
-            rgbs, depths = render_frames(app.params, cams, [0.0, 0.0, 0.0],
-                                         active_sh_degree=3, device="cuda")
-            torch.cuda.synchronize()
-            launches = {c.__name__: c.launches for c in counters}
-    finally:
-        Trainer._step = step
+    with recorded_steps() as record, tempfile.TemporaryDirectory(
+            dir=ROOT / "build") as tmp:
+        app = app_mod.LucidDreamerTPU(
+            gs_config=gs_cfg, save_dir=tmp, device="cuda",
+            dream_config=DreamConfig(depth_estimator=ZOE_DEPTH_NAME))
+        zero_counts()
+        t0 = time.perf_counter()
+        app.create(conditioning_image(seed=5), prompt, "", "lookdown",
+                   seed=1, diff_steps=30, progress_callback=progress)
+        torch.cuda.synchronize()
+        create_s = time.perf_counter() - t0
+        cams = app.scene.get_preset_cameras("llff")[:ZOE_FRAMES]
+        rgbs, depths = render_frames(app.params, cams, [0.0, 0.0, 0.0],
+                                     active_sh_degree=3, device="cuda")
+        torch.cuda.synchronize()
+        launches = counts()
+    losses = record["losses"]
     dream_s = marks["align"] - t0
     views = len(get_pcdgen_poses("lookdown"))
     steps = len(losses)
@@ -1809,6 +1863,406 @@ def depth_training(dev, smi):
     return {"ms": ms, "peak": peak}
 
 
+# ------------------------------------------------------------- the viewer
+
+VIEWER_REQUESTS = 30
+
+
+def viewer_request(cam, scaling_modifier=1.0):
+    """The request a SIBR viewer sends for the port's ``cam``: the
+    transposed (glm) view and view-projection matrices with the y/z
+    columns flipped, as ``tests/test_viewer.py`` builds them."""
+    wvt = cam.viewmatrix.cpu().numpy().T.astype(np.float64)
+    wvt[:, 1] *= -1
+    wvt[:, 2] *= -1
+    vpt = cam.projmatrix.cpu().numpy().T.astype(np.float64)
+    vpt[:, 1] *= -1
+    return {
+        "resolution_x": cam.width, "resolution_y": cam.height, "train": False,
+        "fov_x": 2.0 * float(np.arctan(float(cam.tanfovx))),
+        "fov_y": 2.0 * float(np.arctan(float(cam.tanfovy))),
+        "z_near": cam.znear, "z_far": cam.zfar,
+        "shs_python": False, "rot_scale_python": False, "keep_alive": True,
+        "scaling_modifier": scaling_modifier,
+        "view_matrix": wvt.reshape(-1).tolist(),
+        "view_projection_matrix": vpt.reshape(-1).tolist(),
+    }
+
+
+def _recv_exact(sock, n):
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("the viewer bridge closed the connection")
+        buf += chunk
+    return bytes(buf)
+
+
+class SibrClient(threading.Thread):
+    """A fake SIBR viewer on one connection: connects, sets ``connected``,
+    then sends each request and reads its reply (H x W x 3 bytes when the
+    request has a size, then the length-prefixed verify string).  Keeps
+    the replies, each request's round trip (send to last byte received,
+    host ms) and the error that stopped it, if any."""
+
+    def __init__(self, address, messages, timeout=60.0):
+        super().__init__(daemon=True)
+        self.address, self.messages, self.timeout = address, messages, timeout
+        self.connected = threading.Event()
+        self.replies, self.round_trip_ms, self.error = [], [], None
+
+    def run(self):
+        try:
+            with socket.create_connection(self.address, self.timeout) as s:
+                self.connected.set()
+                for msg in self.messages:
+                    data = json.dumps(msg).encode()
+                    t0 = time.perf_counter()
+                    s.sendall(len(data).to_bytes(4, "little") + data)
+                    img = _recv_exact(
+                        s, msg["resolution_x"] * msg["resolution_y"] * 3)
+                    n = int.from_bytes(_recv_exact(s, 4), "little")
+                    verify = _recv_exact(s, n).decode("ascii")
+                    self.round_trip_ms.append((time.perf_counter() - t0) * 1e3)
+                    self.replies.append((img, verify))
+        except OSError as e:
+            self.error = e
+        finally:
+            self.connected.set()
+
+
+def serve_requests(server, params, bg, messages, timeout=120.0):
+    """Answer ``messages`` from a SibrClient through ``server.serve_once``:
+    the client connects and signals, then the server polls, sleeping 1 ms
+    after each empty poll, until every request is answered or ``timeout``
+    passes.  Returns (the client, the count answered)."""
+    client = SibrClient(server.listener.getsockname(), messages)
+    client.start()
+    client.connected.wait(timeout)
+    deadline = time.monotonic() + timeout
+    answered = 0
+    while answered < len(messages) and time.monotonic() < deadline:
+        if server.serve_once(params, bg):
+            answered += 1
+        else:
+            time.sleep(0.001)
+    client.join(timeout)
+    return client, answered
+
+
+def viewer(dev, ply_path):
+    """Phase 13: the SIBR viewer bridge on phase 3's 1M scene; returns
+    each kernel's launches while it answered."""
+    from luciddreamer_tpu_torch.app import LucidDreamerTPU
+    from luciddreamer_tpu_torch.render.tiled import render_tiled
+    from luciddreamer_tpu_torch.viewer import ViewerServer, frame_bytes
+
+    app = LucidDreamerTPU(device="cuda")
+    app.load_ply(str(ply_path))
+    cams = app.preset_cameras("llff")[:VIEWER_REQUESTS]
+    messages = [viewer_request(c) for c in cams]
+    bg = torch.zeros(3, device=dev)
+    server = ViewerServer(port=0)
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        client, answered = serve_requests(server, app.params, bg, messages)
+        launches = counts()
+    finally:
+        server.close()
+    check(client.error is None and answered == len(messages)
+          == len(client.replies),
+          f"the viewer answered {answered} of {len(messages)} requests, the "
+          f"client read {len(client.replies)} ({client.error!r})")
+
+    cam_err, equal, covered = 0.0, 0, []
+    for cam, msg, (img, verify) in zip(cams, messages, client.replies):
+        got = ViewerServer.camera_from_message(msg, dev)
+        check((got.width, got.height, got.znear, got.zfar)
+              == (cam.width, cam.height, cam.znear, cam.zfar),
+              "camera_from_message changed the size or the clip planes")
+        cam_err = max([cam_err] + [
+            float((getattr(got, k) - getattr(cam, k)).abs().max())
+            for k in ("viewmatrix", "projmatrix", "campos", "tanfovx",
+                      "tanfovy")])
+        with torch.no_grad():
+            direct = render_tiled(app.params, got, bg, backend="cuda")
+        equal += img == frame_bytes(direct["render"]) and verify == "ok"
+        covered.append(np.count_nonzero(np.frombuffer(img, np.uint8)) / len(img))
+    rt = np.asarray(client.round_trip_ms)
+    print(f"[viewer] {answered} requests of {W}x{H} llff frames over one "
+          f"connection, {app.params.capacity} Gaussians: round trip (send to "
+          f"last byte, host wall) median {float(np.median(rt)):.4f} ms, max "
+          f"{float(rt.max()):.4f} ms, first {float(rt[0]):.4f} ms; "
+          f"launches {launches}")
+    print(f"[viewer] replies byte-equal to a direct render of the same "
+          f"camera: {equal} of {answered}; max |camera from message - "
+          f"source| {cam_err:.3e}; non-zero bytes {min(covered):.4f}.."
+          f"{max(covered):.4f}")
+    check(cam_err <= 1e-6, f"a camera from its message is off by {cam_err:.3e}")
+    check(equal == answered, "a viewer reply differs from the direct render")
+    check(min(covered) >= 0.05, "a viewer reply is nearly blank")
+    check(launches == {"blend_fwd": answered, "blend_bwd": 0, "repack_cols": 0},
+          f"launches {launches} for {answered} viewer requests")
+    return launches
+
+
+# -------------------------------------------------------------- the Gradio UI
+
+UI_BACKENDS = ("classic", "radial", "SD1.5 (default)")
+UI_BUTTONS = ("Run all", "Create scene", "Render video")
+
+
+def gradio_stub():
+    """A stand-in ``gradio`` for phase 14 (gradio is not installed on the
+    card machine, and the phase calls the bound functions itself): every
+    component records its arguments in creation order, ``Button.click``
+    records its binding, ``gr.Error`` is an exception.  Returns (the
+    module, {"components": [...], "buttons": [...]})."""
+    record = {"components": [], "buttons": []}
+
+    class Component:
+        def __init__(self, *args, **kw):
+            self.args, self.kw = args, kw
+            record["components"].append(self)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    class Button(Component):
+        bound = None
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            record["buttons"].append(self)
+
+        def click(self, fn, inputs, outputs):
+            self.bound = (fn, inputs, outputs)
+
+    gr = types.ModuleType("gradio")
+    for name in ("Blocks", "Row", "Column", "Markdown", "Image", "Textbox",
+                 "Dropdown", "Radio", "Number", "Slider", "Video", "File",
+                 "Examples"):
+        setattr(gr, name, type(name, (Component,), {}))
+    gr.Button = Button
+    gr.Error = type("Error", (Exception,), {})
+    return gr, record
+
+
+def _segment_table(points, n=256):
+    """matplotlib's lookup table of one channel of a segmented colormap
+    whose segments are continuous: ``points`` are (x, y) pairs."""
+    x, y = np.asarray(points, np.float64).T
+    x = x * (n - 1)
+    xind = (n - 1) * np.linspace(0.0, 1.0, n)
+    ind = np.searchsorted(x, xind)[1:-1]
+    distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+    inner = distance * (y[ind] - y[ind - 1]) + y[ind - 1]
+    return np.clip(np.concatenate([[y[0]], inner, [y[-1]]]), 0.0, 1.0)
+
+
+JET = {"red": ((0.0, 0.0), (0.35, 0.0), (0.66, 1.0), (0.89, 1.0), (1.0, 0.5)),
+       "green": ((0.0, 0.0), (0.125, 0.0), (0.375, 1.0), (0.64, 1.0),
+                 (0.91, 0.0), (1.0, 0.0)),
+       "blue": ((0.0, 0.5), (0.11, 1.0), (0.34, 1.0), (0.65, 0.0), (1.0, 0.0))}
+
+
+def video_stand_ins():
+    """Stand-ins for the two modules the port's video writer imports and
+    the card machine lacks (it has OpenCV and Pillow): ``imageio.mimwrite``
+    encodes an mp4 (MPEG-4 part 2) through OpenCV and refuses any other
+    suffix; ``matplotlib.colormaps["jet"]`` is matplotlib's jet, 256
+    entries from its segment data.  Returns {name: module}."""
+    def mimwrite(path, frames, fps=60, **_):
+        import cv2
+
+        if not str(path).endswith(".mp4"):
+            raise ValueError(f"the imageio stand-in writes mp4 only: {path}")
+        h, w = frames[0].shape[:2]
+        out = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                              (w, h))
+        if not out.isOpened():
+            raise RuntimeError(f"OpenCV cannot write {path}")
+        try:
+            for f in frames:
+                out.write(cv2.cvtColor(np.ascontiguousarray(f),
+                                       cv2.COLOR_RGB2BGR))
+        finally:
+            out.release()
+
+    table = np.stack([_segment_table(JET[c]) for c in ("red", "green", "blue")]
+                     + [np.ones(256)], axis=-1)
+
+    def jet(x, bytes=False):
+        xa = np.array(x, copy=True)
+        xa *= 256
+        xa[xa == 256] = 255
+        lut = (table * 255).astype(np.uint8) if bytes else table
+        return lut[xa.astype(int)]
+
+    imageio = types.ModuleType("imageio")
+    imageio.mimwrite = mimwrite
+    matplotlib = types.ModuleType("matplotlib")
+    matplotlib.colormaps = {"jet": jet}
+    return {"imageio": imageio, "matplotlib": matplotlib}
+
+
+def gradio_ui(dev, work):
+    """Phase 14: the Gradio UI's buttons at the app's own defaults; returns
+    each kernel's launches in its run."""
+    from PIL import Image
+
+    from luciddreamer_tpu_torch import app as app_mod
+    from luciddreamer_tpu_torch import video as videolib
+    from luciddreamer_tpu_torch.app_gradio import build_demo
+    from luciddreamer_tpu_torch.config import GSConfig
+    from luciddreamer_tpu_torch.render.binning import build_tile_bins
+    from luciddreamer_tpu_torch.render.preprocess import preprocess_gaussians
+    from luciddreamer_tpu_torch.utils import PhaseTimer
+
+    gr, ui = gradio_stub()
+    modules = {"gradio": gr, **{
+        name: m for name, m in video_stand_ins().items()
+        if importlib.util.find_spec(name) is None}}
+    timer, seen = PhaseTimer(), {"writes": []}
+
+    def timed_create(create):
+        def run(self, *a, **kw):
+            seen["app"] = self
+            t0 = time.perf_counter()
+            out = create(self, *a, timer=timer, **kw)
+            torch.cuda.synchronize()
+            seen["create_s"] = time.perf_counter() - t0
+            return out
+        return run
+
+    def timed_write(write):
+        def run(rgbs, depths, *a, **kw):
+            t0 = time.perf_counter()
+            out = write(rgbs, depths, *a, **kw)
+            seen["writes"].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    image = Image.fromarray(conditioning_image(seed=5))
+    with installed(modules), recorded_steps() as record, \
+            wrapped(app_mod.LucidDreamerTPU, "create", timed_create), \
+            wrapped(videolib, "write_videos", timed_write):
+        build_demo(save_dir=str(work / "gradio"))
+        bound = {b.args[0]: b.bound for b in ui["buttons"]}
+        check(sorted(bound) == sorted(UI_BUTTONS)
+              and all(b is not None for b in bound.values()),
+              f"build_demo bound {bound}")
+        run_all, render_only = bound["Run all"][0], bound["Render video"][0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        llff_paths = run_all(image, "", "", "lookdown", "llff", 1, 30,
+                             *UI_BACKENDS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        back_paths = render_only("back_and_forth", *UI_BACKENDS)
+        torch.cuda.synchronize()
+        back_s = time.perf_counter() - t1
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        try:
+            render_only("llff", "classic", "zoedepth_flax", "SD1.5 (default)")
+            refused = False
+        except gr.Error:
+            refused = True
+
+    app = seen["app"]
+    tr = app.trainer
+    views = app.scene.get_train_views()
+    n_llff = len(app.scene.get_preset_cameras("llff"))
+    n_back = len(app.scene.get_preset_cameras("back_and_forth"))
+    steps = len(record["losses"])
+    iterations = GSConfig().iterations
+    losses = np.asarray([float(v) for v in record["losses"]])
+    step_ms = np.asarray([a.elapsed_time(b) for a, b in record["events"]])
+    psnr_before = view0_psnr(record.pop("start"), views[0])
+    psnr_after = view0_psnr(app.params, views[0])
+    alive, capacity = int(app.params.num_alive), app.params.capacity
+    with torch.no_grad():
+        pairs = np.asarray([int(build_tile_bins(
+            preprocess_gaussians(app.params, v.camera, 3), H, W, 16,
+            tr.pair_cap).num_pairs) for v in views])
+    # the densify statistic since the last densify: each live Gaussian's
+    # mean |dL/d mean2d| over the steps that saw it, in pixels
+    stats, thr = tr.state.stats, tr.cfg.densify_grad_threshold
+    seen_rows = app.params.alive & (stats.denom > 0)
+    avg = (stats.grad_accum / stats.denom.clamp_min(1.0))[seen_rows]
+    stage = timer.totals
+    ply = work / "gradio" / "gsplat.ply"
+    files = [Path(p) for p in (*llff_paths, *back_paths)] + [ply]
+    print(f"[ui] run_all (create + llff video) {run_s:.2f} s host time; "
+          f"create {seen['create_s']:.2f} s: dream {stage['dream']:.2f} s, "
+          f"Scene {stage['scene']:.2f} s, bake_setup {stage['bake_setup']:.2f} "
+          f"s, bake {stage['bake']:.2f} s for {steps} steps ({iterations} "
+          f"committed), save_ply {stage['save_ply']:.2f} s")
+    print(f"[ui] bake step: device ms by events min / median / max "
+          f"{step_ms.min():.4f} / {float(np.median(step_ms)):.4f} / "
+          f"{step_ms.max():.4f}; host wall {stage['bake'] * 1e3 / steps:.4f} ms "
+          "per step; median by thirds of the bake "
+          + " / ".join(f"{float(np.median(t)):.4f}"
+                       for t in np.array_split(step_ms, 3)) + " ms")
+    print(f"[ui] after the bake: {alive} live Gaussians of capacity "
+          f"{capacity}; pairs of the {len(views)} training views max "
+          f"{int(pairs.max())}, mean {float(pairs.mean()):.0f} against a pair "
+          f"budget of {tr.pair_cap} (the app's {app_mod.MAX_PAIR_CAP}); "
+          f"{steps - iterations} overflowed steps re-run; the Trainer's "
+          f"overflow flag {tr.last_overflow}")
+    print(f"[ui] densify statistic of the {int(seen_rows.sum())} live "
+          f"Gaussians seen since the last densify: mean |dL/d mean2d| median "
+          f"{float(avg.median()):.3e}, 99.9th percentile "
+          f"{float(avg.quantile(0.999)):.3e}, max {float(avg.max()):.3e} per "
+          f"pixel; at or above the threshold {thr}: {int((avg >= thr).sum())}; "
+          f"at or above threshold / (W/2) = {thr / (W / 2):.3e} (the same rule "
+          f"on a gradient in NDC units, W/2 times the pixel one): "
+          f"{int((avg >= thr / (W / 2)).sum())}")
+    print(f"[ui] loss first 10 mean {losses[:10].mean():.5f}, last 10 mean "
+          f"{losses[-10:].mean():.5f}; PSNR of training view 0 before "
+          f"{psnr_before:.3f} dB, after {psnr_after:.3f} dB")
+    llff_s = run_s - seen["create_s"]
+    print(f"[ui] videos (render, colourize and encode; host wall): llff "
+          f"{n_llff} frames {llff_s * 1e3 / n_llff:.4f} ms per frame (writing "
+          f"{seen['writes'][0] * 1e3 / n_llff:.4f}), back_and_forth {n_back} "
+          f"frames {back_s * 1e3 / n_back:.4f} ms per frame (writing "
+          f"{seen['writes'][1] * 1e3 / n_back:.4f}); stand-ins for "
+          f"{sorted(set(modules) - {'gradio'})}; files "
+          + ", ".join(f"{f.name} {f.stat().st_size if f.exists() else 0} B"
+                      for f in files))
+    print(f"[ui] launches {launches}; peak device memory {peak / 2**30:.3f} GiB "
+          "over run_all and render_only")
+    check(all(f.exists() and f.stat().st_size > 0 for f in files),
+          "a video or the PLY file is missing or empty")
+    check(bool(np.isfinite(losses).all()), "a bake loss is not finite")
+    check(steps >= iterations, f"{steps} steps for {iterations} iterations")
+    check(psnr_after > psnr_before, "the bake did not raise view 0's PSNR")
+    check(capacity == CAPACITY, f"capacity {capacity}, not {CAPACITY}")
+    check(launches == {"blend_fwd": steps + n_llff + n_back,
+                       "blend_bwd": steps, "repack_cols": steps},
+          f"launches {launches} for {steps} steps and {n_llff} + {n_back} "
+          "frames")
+    check(refused, "render_only rendered with a changed depth model")
+
+    # the kernels against their plain versions on the baked scene, after
+    # the counts were read, as phases 9 and 10 do
+    whole_gradient(app.params, views[0].camera, "UI's baked scene, training "
+                   f"view 0, pair budget {tr.pair_cap}", pair_cap=tr.pair_cap)
+    check_large_frame(app.params, app.scene.get_preset_cameras("llff")[0],
+                      torch.zeros(3, device=dev), "UI's baked scene, llff "
+                      "frame 0")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAILED: no CUDA device", file=sys.stderr)
@@ -1825,30 +2279,35 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t_start = time.time()
+    (ROOT / "build").mkdir(exist_ok=True)
     try:
-        print_build_report()
-        bg = torch.zeros(3, device=dev)
-        app, cams, k1 = serving(bg, dev)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            work = Path(tmp)
+            print_build_report()
+            bg = torch.zeros(3, device=dev)
+            app, cams, k1 = serving(bg, dev, work / "scene.ply")
 
-        # ---- 6. K2, K3 and the whole gradient ----
-        small = make_scene(P_SMALL, seed=7, device=dev)
-        check_k2(small, cams[0], "20k llff frame 0", 1.0)
-        whole_gradient(small, cams[0], "20k llff frame 0")
-        del small
-        check_blend_edges(dev)
-        check_k3_edges(dev)
-        pairs, d_rows, k2_err = check_k2(
-            app.params, cams[0], "1M llff frame 0", 0.999)
-        k3_err = check_vjp(pairs, d_rows)
-        del pairs, d_rows
-        whole_gradient(app.params, cams[0], "1M llff frame 0")
+            # ---- 6. K2, K3 and the whole gradient ----
+            small = make_scene(P_SMALL, seed=7, device=dev)
+            check_k2(small, cams[0], "20k llff frame 0", 1.0)
+            whole_gradient(small, cams[0], "20k llff frame 0")
+            del small
+            check_blend_edges(dev)
+            check_k3_edges(dev)
+            pairs, d_rows, k2_err = check_k2(
+                app.params, cams[0], "1M llff frame 0", 0.999)
+            k3_err = check_vjp(pairs, d_rows)
+            del pairs, d_rows
+            whole_gradient(app.params, cams[0], "1M llff frame 0")
 
-        train = training(app, cams, dev)
-        del app
-        dream, radial_dream_s = dream_to_video(dev)
-        zoe = depth_model(dev, radial_dream_s)
-        shard, shard_band, shard_errs = sharded_training(cams, dev, smi)
-        depth_training(dev, smi)
+            train = training(app, cams, dev)
+            del app
+            dream, radial_dream_s = dream_to_video(dev)
+            zoe = depth_model(dev, radial_dream_s)
+            shard, shard_band, shard_errs = sharded_training(cams, dev, smi)
+            depth_training(dev, smi)
+            view = viewer(dev, work / "scene.ply")
+            ui = gradio_ui(dev, work)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1856,7 +2315,7 @@ def main() -> int:
 
     source = "luciddreamer_tpu_torch/csrc/{}.cu".format
     launches = {k: train["launches"][k] + dream[k] + zoe[k] + shard[k]
-                for k in KERNELS}
+                + view[k] + ui[k] for k in KERNELS}
     launches["blend_fwd"] += k1["serve_launches"]
     rows = [
         {"name": "blend_fwd", "route": "cuda", "source": source("blend_fwd"),
@@ -1878,7 +2337,8 @@ def main() -> int:
     print(f"[done] launches by path: serving {{'blend_fwd': "
           f"{k1['serve_launches']}}}, training {train['launches']}, dream to "
           f"video {dream}, dream with ZoeD_N {zoe}, sharded training "
-          f"{shard}; K1-K3 on band {shard_band}: max |d| {shard_errs}")
+          f"{shard}, viewer {view}, Gradio UI {ui}; K1-K3 on band "
+          f"{shard_band}: max |d| {shard_errs}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -134,7 +134,10 @@ class LucidDreamerTPU:
             for fr in get_camera_paths()[preset]["frames"]
         ]
 
-    def render_video(self, preset: str = "llff"):
+    def render_video(self, preset: str = "llff", progress_callback=None):
+        """Render the preset path and write its RGB and depth videos into
+        ``save_dir``; returns their paths.  ``progress_callback`` is
+        accepted and not called, as in the JAX package."""
         if self.params is None:
             raise RuntimeError("No trained Gaussians; call create or load_ply first")
         bg = [1.0, 1.0, 1.0] if self.opt.white_background else [0.0, 0.0, 0.0]

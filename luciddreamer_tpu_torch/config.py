@@ -1,6 +1,8 @@
 """Configuration read by the render and training paths (mirrors
 ``luciddreamer_tpu.config``, with its defaults).  The dream stage's
 ``DreamConfig`` lives with its pipeline, ``dream/pipeline.py``.
+``RenderConfig`` names the rasterizer's knobs and their values; the render
+path takes its arguments directly and does not read it.
 """
 from __future__ import annotations
 
@@ -68,3 +70,23 @@ class CameraConfig:
             ],
             dtype=np.float32,
         )
+
+
+@dataclasses.dataclass
+class RenderConfig:
+    """Rasterizer geometry and capacity knobs.
+
+    The pair buffers have an explicit capacity; the renderer reports
+    overflow so that callers can render again with a larger one.
+    """
+
+    tile_size: int = 16
+    max_pairs_per_gaussian: int = 0  # 0 = unlimited (rect area is the bound)
+    pair_capacity_multiplier: float = 8.0  # max_pairs = multiplier * P
+    chunk_size: int = 128            # gaussians blended per inner step
+    # blend cutoffs
+    alpha_clamp: float = 0.99
+    alpha_min: float = 1.0 / 255.0
+    transmittance_min: float = 1.0e-4
+    acc_min: float = 0.5             # depth emitted only where acc > 0.5
+    near_plane: float = 0.2          # frustum cull

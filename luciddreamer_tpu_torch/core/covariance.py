@@ -131,3 +131,8 @@ def cov2d_max_sigma(cov2d: torch.Tensor, det: torch.Tensor) -> torch.Tensor:
     mid = 0.5 * (cxx + cyy)
     disc = torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
     return torch.sqrt(torch.clamp_min(mid + disc, 0.0))
+
+
+def cov2d_extent_radius(cov2d: torch.Tensor, det: torch.Tensor) -> torch.Tensor:
+    """Screen-space radius = ceil(3 * sqrt(max eigenvalue))."""
+    return torch.ceil(3.0 * cov2d_max_sigma(cov2d, det))

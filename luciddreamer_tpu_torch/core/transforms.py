@@ -58,6 +58,12 @@ def ndc2pix(v, S):
     return ((v + 1.0) * S - 1.0) * 0.5
 
 
+def homogeneous_transform(points: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """Apply a 4x4 to (..., 3) points; returns (..., 4)."""
+    p = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+    return p @ matrix.T
+
+
 def make_camera(
     c2w: np.ndarray,
     fovx: float,
@@ -86,3 +92,13 @@ def make_camera(
         znear=znear,
         zfar=zfar,
     )
+
+
+def camera_from_w2c(
+    w2c: np.ndarray, fovx: float, fovy: float, width: int, height: int,
+    znear: float = 0.01, zfar: float = 100.0, device=None,
+) -> Camera:
+    """Build a renderer Camera from a 4x4 world-to-camera matrix."""
+    c2w = np.linalg.inv(np.asarray(w2c, dtype=np.float64))
+    return make_camera(c2w, fovx, fovy, width, height, znear, zfar,
+                       device=device)

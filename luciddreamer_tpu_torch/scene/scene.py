@@ -25,6 +25,7 @@ import numpy as np
 from luciddreamer_tpu_torch.core.transforms import focal2fov, fov2focal, make_camera
 from luciddreamer_tpu_torch.core.types import Camera
 from luciddreamer_tpu_torch.device import resolve_device
+from luciddreamer_tpu_torch.train.losses import image2canny
 from luciddreamer_tpu_torch.trajectory import get_camera_paths
 
 
@@ -37,6 +38,17 @@ class TrainView:
     camera: Camera
     image: np.ndarray
     depth: np.ndarray | None = None
+    _canny: np.ndarray | None = None
+
+    @property
+    def canny_mask(self) -> np.ndarray:
+        """(H, W) float32 inverse-Canny mask of the image, computed on first
+        use with the reference's per-camera parameters: thresholds
+        (50, 150), isEdge1=False."""
+        if self._canny is None:
+            hwc = np.asarray(self.image).transpose(1, 2, 0)
+            self._canny = image2canny(hwc, 50, 150, isEdge1=False)
+        return self._canny
 
 
 def frame_to_camera(transform_matrix, fovx, fovy, W, H, device=None) -> Camera:

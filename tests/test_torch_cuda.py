@@ -292,3 +292,30 @@ def test_band_gradients_sum_to_the_whole_gradient(dev):
     for g, r in zip(got, ref):
         scale = float(r.abs().max()) + 1e-12
         assert float((g - r).abs().max()) <= 5e-4 * scale
+
+
+def test_viewer_reply_matches_direct_render(dev):
+    """One SIBR request through the viewer bridge on a 20k scene at 512x512:
+    the reply is the direct K1 render's bytes, and it is one K1 launch."""
+    from chip_smoke import serve_requests, viewer_request
+    from luciddreamer_tpu_torch.viewer import ViewerServer, frame_bytes
+
+    params = _scene(20_000, 8, dev)
+    cam = make_camera(np.eye(4), 0.8279, 0.8279, 512, 512, device=dev)
+    bg = torch.zeros(3, device=dev)
+    msg = viewer_request(cam)
+    server = ViewerServer(port=0)
+    try:
+        cuda_blend.blend_fwd.launches = 0
+        client, answered = serve_requests(server, params, bg, [msg],
+                                          timeout=60.0)
+        launches = cuda_blend.blend_fwd.launches
+    finally:
+        server.close()
+    assert client.error is None and answered == 1 and launches == 1
+    img, verify = client.replies[0]
+    got = ViewerServer.camera_from_message(msg, dev)
+    with torch.no_grad():
+        direct = render_tiled(params, got, bg, backend="cuda")["render"]
+    assert verify == "ok" and img == frame_bytes(direct)
+    assert np.count_nonzero(np.frombuffer(img, np.uint8)) > 0.05 * len(img)
