@@ -177,9 +177,38 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    peak memory; then holds K1-K3 against their plain versions on the baked
    scene as phase 9 does.
 
+15. The model adapters under stand-ins (``adapter_stand_ins``: neither
+   machine has ``diffusers``, ``transformers`` or the checkpoints): a
+   stand-in ``diffusers`` whose two pipelines record their kwargs, check
+   that the generator and the control image live on the pipe's device and
+   compute their image there from their input (``diffusers_stub``); a
+   scripted two-convolution LaMa saved as ``big-lama.pt`` in the run's
+   working directory under ``build/``, with the port's ``fetch_checked``
+   replaced by one that returns that file (no network is reached, and a
+   stand-in's md5 cannot match big-lama.pt's); a stand-in ``transformers``
+   whose depth pipeline returns a 384x384 map for the 512x512 image, so
+   the adapter resizes it (``transformers_stub``).  ``create`` at 512x512
+   on ``lookdown`` with ``inpainter="sd_controlnet"`` (which chains
+   ``lama``) and ``depth_estimator="zoedepth"``, at phase 9's cuts (400,000
+   points, capacity 1.2M, budget 6M, 100 bake steps), then the first 30
+   ``llff`` frames.  ControlNet and LaMa called once per dreamed view (13)
+   and ZoeDepth once per view (14), each on and returning CUDA tensors;
+   the pipe's strength 0.9, steps, prompt and size, its seeds drawn from
+   the dream's generator; every loss finite, view 0's PSNR risen, K2 and
+   K3 launched once per step and K1 once per step and frame, the frames
+   finite and not blank.  Prints ``create``'s stages (host s), each
+   adapter's host ms per call, a bake step's ms (events, host wall) and
+   the peak memory.  After the counts are read, K1-K3 against their plain
+   versions on the baked scene as phase 9 does, then each of the four
+   adapters (``sd`` too) applied once on ``cuda`` and once on the CPU to
+   one 512x512 input: ``sd`` within 1e-6, ``lama`` within 1e-5,
+   ``sd_controlnet`` within one grey level (its init image is LaMa's fill
+   rounded to 8 bits) with its mask image equal and its condition within
+   1e-5, ``zoedepth`` within 1e-5 of the depth's max.
+
 Prints the kernels line (``launches``: the sum of each kernel's counts
-over the seven main-path runs, phases 3, 7, 9, 10, 11, 13 and 14) and the
-card line, then the result line last.
+over the eight main-path runs, phases 3, 7, 9, 10, 11, 13, 14 and 15) and
+the card line, then the result line last.
 Exits non-zero, printing no result, when any phase fails or no CUDA device
 is present.
 """
@@ -2263,6 +2292,380 @@ def gradio_ui(dev, work):
     return launches
 
 
+# ------------------------------------------------------ the model adapters
+
+ADAPTER_BAKE_STEPS = 100
+ADAPTER_FRAMES = 30
+ADAPTER_DEPTH_HW = (384, 384)     # the stand-in depth map: not the image's size
+ADAPTERS = ("sd", "lama", "sd_controlnet", "zoedepth")
+LAMA_SEED = 13
+
+
+class StandInLama(torch.nn.Module):
+    """LaMa's call: image (1, 3, H, W) and mask (1, 1, H, W), 1 = hole ->
+    image (1, 3, H, W) in [0, 1]; two 3x3 convolutions, seeded weights."""
+
+    def __init__(self, seed: int):
+        super().__init__()
+        self.conv1 = torch.nn.Conv2d(4, 16, 3, padding=1)
+        self.conv2 = torch.nn.Conv2d(16, 3, 3, padding=1)
+        g = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+
+    def forward(self, image, mask):
+        x = torch.cat([image * (1 - mask), mask], 1)
+        return torch.sigmoid(self.conv2(torch.relu(self.conv1(x))))
+
+
+def scripted_lama(path, seed=LAMA_SEED):
+    """``StandInLama(seed)`` scripted and saved at ``path``, a TorchScript
+    file as big-lama.pt is; returns ``path``."""
+    torch.jit.script(StandInLama(seed)).save(str(path))
+    return path
+
+
+def diffusers_stub():
+    """A stand-in ``diffusers`` (neither machine has the package or Stable
+    Diffusion weights): ``from_pretrained`` records its arguments, ``to``
+    sets the pipe's device (the CPU before), and a call records its kwargs,
+    checks that the generator and the control image live on the pipe's
+    device, and computes its image there from its input: the inpainting
+    pipe inverts the colours in the hole (1 - x), the ControlNet pipe where
+    the condition is -1; exact, so the CPU and the card agree.  Returns
+    (the module, {"from_pretrained": [...], "sd": [kwargs, ...],
+    "sd_controlnet": [...]})."""
+    from PIL import Image as PILImage
+
+    record = {"from_pretrained": [], "sd": [], "sd_controlnet": []}
+
+    class Result:
+        def __init__(self, image):
+            self.images = [image]
+
+    class InpaintPipe:
+        name = "sd"
+
+        def __init__(self, model, controlnet):
+            self.model, self.controlnet = model, controlnet
+            self.device = torch.device("cpu")
+
+        @classmethod
+        def from_pretrained(cls, model, controlnet=None, **kw):
+            record["from_pretrained"].append((cls.name, model, controlnet, kw))
+            return cls(model, controlnet)
+
+        def to(self, device):
+            self.device = torch.device(device)
+            return self
+
+        def hole(self, kw):
+            return torch.as_tensor(np.array(kw["mask_image"]),
+                                   device=self.device) > 127
+
+        def __call__(self, **kw):
+            record[self.name].append(kw)
+            check(kw["generator"].device.type == self.device.type,
+                  f"the {self.name} pipe on {self.device} got a generator on "
+                  f"{kw['generator'].device}")
+            x = torch.as_tensor(np.array(kw["image"]),
+                                device=self.device).to(torch.float32) / 255
+            out = torch.where(self.hole(kw)[..., None], 1.0 - x, x)
+            return Result(PILImage.fromarray(
+                torch.round(out * 255).to(torch.uint8).cpu().numpy()))
+
+    class ControlNetPipe(InpaintPipe):
+        name = "sd_controlnet"
+
+        def hole(self, kw):
+            c = kw["control_image"]
+            check(c.device.type == self.device.type,
+                  f"the control image on {c.device}, the pipe on {self.device}")
+            return (c[0] == -1).all(0)
+
+    mod = types.ModuleType("diffusers")
+    mod.StableDiffusionInpaintPipeline = InpaintPipe
+    mod.StableDiffusionControlNetInpaintPipeline = ControlNetPipe
+    mod.ControlNetModel = types.SimpleNamespace(
+        from_pretrained=lambda name, **kw: {"name": name})
+    return mod, record
+
+
+def transformers_stub(depth_hw=ADAPTER_DEPTH_HW):
+    """A stand-in ``transformers`` whose ``pipeline("depth-estimation",
+    model, device)`` returns a depth map of ``depth_hw`` (another size than
+    the image's, so the adapter resizes it): 3 - the image's mean
+    brightness, resized bilinearly on the pipe's device.  Returns (the
+    module, {"pipelines": [(model, device)], "calls": [(size, device)]})."""
+    import torch.nn.functional as F
+
+    record = {"pipelines": [], "calls": []}
+
+    def pipeline(task, model=None, device=None):
+        check(task == "depth-estimation", f"pipeline({task!r})")
+        dev = torch.device("cpu" if device is None else device)
+        record["pipelines"].append((model, dev))
+
+        def run(image):
+            record["calls"].append((image.size, dev))
+            x = torch.as_tensor(np.array(image), device=dev).to(torch.float32)
+            depth = 3.0 - x.mean(-1) / 255
+            return {"predicted_depth": F.interpolate(
+                depth[None, None], size=depth_hw, mode="bilinear",
+                align_corners=False)[0]}
+        return run
+
+    mod = types.ModuleType("transformers")
+    mod.pipeline = pipeline
+    return mod, record
+
+
+@contextlib.contextmanager
+def adapter_stand_ins(lama_path, depth_hw=ADAPTER_DEPTH_HW):
+    """Phase 15's stand-ins, inside the block only: ``diffusers_stub()`` and
+    ``transformers_stub(depth_hw)`` in ``sys.modules``, and the port's
+    ``utils.download.fetch_checked`` replaced by one that returns
+    ``lama_path``, the scripted stand-in: no network is reached, and a
+    stand-in's md5 cannot match big-lama.pt's.  The four adapters leave the
+    port's registries before and after the block, so they register against
+    the stand-ins and leave nothing behind.  Yields the stand-ins' records
+    ({"diffusers": ..., "transformers": ...})."""
+    from luciddreamer_tpu_torch.dream import protocols
+    from luciddreamer_tpu_torch.utils import download
+
+    diffusers, sd_record = diffusers_stub()
+    transformers, depth_record = transformers_stub(depth_hw)
+
+    def drop():
+        for name in ADAPTERS:
+            protocols._INPAINTERS.pop(name, None)
+            protocols._DEPTH.pop(name, None)
+
+    drop()
+    try:
+        with installed({"diffusers": diffusers, "transformers": transformers}), \
+                wrapped(download, "fetch_checked",
+                        lambda fetch: lambda url, dest, **kw: str(lama_path)):
+            yield {"diffusers": sd_record, "transformers": depth_record}
+    finally:
+        drop()
+
+
+def counted(factory, calls):
+    """``factory(device=None)`` whose products record each call: the
+    device types of the tensors passed and returned, and the call's host
+    seconds (synchronised)."""
+    def build(device=None):
+        inner = factory(device=device)
+
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(*args, **kw)
+            torch.cuda.synchronize()
+            calls.append(({a.device.type for a in (*args, out)
+                           if isinstance(a, torch.Tensor)},
+                          time.perf_counter() - t))
+            return out
+        return call
+    return build
+
+
+def adapters_on_both_devices(dev, lama_path, image):
+    """Each of the four adapters applied once on ``dev`` and once on the
+    CPU to the same 512x512 input under the same stand-ins; returns
+    {name: max |card - cpu|} after checking each against its tolerance."""
+    from luciddreamer_tpu_torch.dream import protocols
+
+    img = torch.as_tensor(image.astype(np.float32) / 255)
+    y, x = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    mask = (((x - 300) ** 2 + (y - 260) ** 2 < 90 ** 2) | (x < 40)).to(
+        torch.float32)
+    img[100:104, 100:110] = 0.0          # black pixels: holes for ControlNet
+    # stated before the run: sd's stand-in is exact on 8-bit input, but the
+    # card may divide by 255 through a reciprocal (an ulp); LaMa's
+    # convolutions sum in another order (TF32 off); ControlNet rounds
+    # LaMa's fill to 8 bits, so a value at a rounding edge may land one
+    # grey level apart; the depth resizes bilinearly on each device
+    limits = {"sd": 1e-6, "lama": 1e-5, "sd_controlnet": 1 / 255 + 1e-6,
+              "zoedepth": 1e-5}
+    errs = {}
+    with adapter_stand_ins(lama_path) as rec:
+        for name in ADAPTERS:
+            outs = {}
+            for d in (dev, torch.device("cpu")):
+                if name == "zoedepth":
+                    est = protocols.get_depth_estimator(name, device=d)
+                    outs[d.type] = est(img.to(d))
+                else:
+                    inp = protocols.get_inpainter(name, device=d)
+                    outs[d.type] = inp(img.to(d), mask.to(d), "a prompt", "",
+                                       30, torch.Generator(device=d).manual_seed(3))
+            card, cpu = outs[dev.type], outs["cpu"]
+            check(card.device.type == dev.type and cpu.device.type == "cpu"
+                  and card.shape == cpu.shape and card.dtype == torch.float32,
+                  f"{name}: {card.device} {tuple(card.shape)} against "
+                  f"{cpu.device} {tuple(cpu.shape)}")
+            errs[name] = err = float((card.cpu() - cpu).abs().max())
+            limit = limits[name] * (float(cpu.abs().max())
+                                    if name == "zoedepth" else 1.0)
+            check(err <= limit, f"{name} on {dev.type} against the CPU: max "
+                  f"|d| {err:.3e}, limit {limit:.3e}")
+        card_kw, cpu_kw = rec["diffusers"]["sd_controlnet"]
+        mask_equal = np.array_equal(np.asarray(card_kw["mask_image"]),
+                                    np.asarray(cpu_kw["mask_image"]))
+        init_d = np.abs(np.asarray(card_kw["image"], np.int16)
+                        - np.asarray(cpu_kw["image"], np.int16))
+        cond_d = float((card_kw["control_image"].cpu()
+                        - cpu_kw["control_image"]).abs().max())
+    print(f"[adapters] {dev.type} against the CPU on one 512x512 input (a disc "
+          f"and a band of holes, 40 black pixels): max |d| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (zoedepth's limit {limit:.3e}); ControlNet's mask image "
+          f"{'equal' if mask_equal else 'DIFFERENT'}, its init image "
+          f"{int((init_d > 0).sum())} of {init_d.size} values a grey level "
+          f"apart, its condition max |d| {cond_d:.3e}")
+    check(mask_equal and init_d.max() <= 1 and cond_d <= 1e-5,
+          "ControlNet's inputs differ between the card and the CPU")
+    return errs
+
+
+def model_adapters(dev, work):
+    """Phase 15: the dream through the model adapters (``sd_controlnet``,
+    which chains ``lama``, and ``zoedepth``) under stand-ins into the K1-K3
+    bake and a video; returns each kernel's launches in its run."""
+    from luciddreamer_tpu_torch import app as app_mod
+    from luciddreamer_tpu_torch.config import GSConfig
+    from luciddreamer_tpu_torch.dream import DreamConfig, protocols
+    from luciddreamer_tpu_torch.trajectory import get_pcdgen_poses
+    from luciddreamer_tpu_torch.utils import PhaseTimer
+    from luciddreamer_tpu_torch.video import render_frames
+
+    lama_path = scripted_lama(work / "big-lama.pt")
+    image = conditioning_image(seed=5)
+    prompt = (ROOT / "examples" / "waterfall.txt").read_text().splitlines()[0]
+    calls = {"lama": [], "sd_controlnet": [], "zoedepth": []}
+    marks = {}
+
+    def progress(stage, i, n):
+        if stage not in marks:
+            torch.cuda.synchronize()
+            marks[stage] = time.perf_counter()
+
+    cfg = GSConfig(iterations=ADAPTER_BAKE_STEPS,
+                   position_lr_max_steps=ADAPTER_BAKE_STEPS,
+                   densify_from_iter=50, densification_interval=25)
+    timer = PhaseTimer()
+    with adapter_stand_ins(lama_path) as rec, recorded_steps() as record, \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for name in ("lama", "sd_controlnet"):
+            protocols.register_inpainter(name, counted(
+                protocols.inpainter_factory(name), calls[name]))
+        protocols.register_depth_estimator("zoedepth", counted(
+            protocols.depth_estimator_factory("zoedepth"), calls["zoedepth"]))
+        app = app_mod.LucidDreamerTPU(
+            gs_config=cfg, save_dir=tmp, device=dev,
+            dream_config=DreamConfig(inpainter="sd_controlnet",
+                                     depth_estimator="zoedepth"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        app.create(image, prompt, "", "lookdown", seed=1, diff_steps=30,
+                   progress_callback=progress, timer=timer)
+        torch.cuda.synchronize()
+        create_s = time.perf_counter() - t0
+        cams = app.scene.get_preset_cameras("llff")[:ADAPTER_FRAMES]
+        t1 = time.perf_counter()
+        rgbs, depths = render_frames(app.params, cams, [0.0, 0.0, 0.0],
+                                     active_sh_degree=3, device=dev)
+        torch.cuda.synchronize()
+        video_s = time.perf_counter() - t1
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+
+    views = len(get_pcdgen_poses("lookdown"))
+    steps = len(record["losses"])
+    losses = np.asarray([float(v) for v in record["losses"]])
+    step_ms = np.asarray([a.elapsed_time(b) for a, b in record["events"]])
+    train_views = app.scene.get_train_views()
+    psnr_before = view0_psnr(record.pop("start"), train_views[0])
+    psnr_after = view0_psnr(app.params, train_views[0])
+    cloud = app.traindata["pcd_points"]
+    stage = timer.totals
+    dream_s = marks["align"] - t0
+    cn_calls = rec["diffusers"]["sd_controlnet"]
+    seeds = [kw["generator"].initial_seed() for kw in cn_calls]
+    covered = [float((d > 0).mean()) for d in depths]
+    ms = {k: " / ".join(f"{1e3 * f([t for _, t in v]):.2f}"
+                        for f in (min, np.median, max))
+          for k, v in calls.items()}
+    print(f"[adapters] create with sd_controlnet (LaMa's init) and zoedepth "
+          f"under stand-ins {create_s:.2f} s host time: dream loop "
+          f"(conditioning and {views - 1} views) {dream_s:.2f} s, align loop "
+          f"({len(train_views)} frames) {stage['dream'] - dream_s:.2f} s, Scene "
+          f"{stage['scene']:.2f} s, bake_setup {stage['bake_setup']:.2f} s, "
+          f"bake {stage['bake']:.2f} s for {steps} steps, save_ply "
+          f"{stage['save_ply']:.2f} s")
+    print(f"[adapters] calls, host ms each (synchronised) min / median / max: "
+          f"sd_controlnet {len(calls['sd_controlnet'])} calls "
+          f"{ms['sd_controlnet']} (LaMa inside), lama {len(calls['lama'])} "
+          f"calls {ms['lama']}, zoedepth {len(calls['zoedepth'])} calls "
+          f"{ms['zoedepth']}; seeds drawn from the dream's generator "
+          f"{seeds[:3]}...")
+    print(f"[adapters] cloud {cloud.shape[1]} points; capacity "
+          f"{app.trainer.state.params.capacity}; pair budget "
+          f"{app.trainer.pair_cap}; bake step: device ms by events min / "
+          f"median / max {step_ms.min():.4f} / {float(np.median(step_ms)):.4f} "
+          f"/ {step_ms.max():.4f}, host wall {stage['bake'] * 1e3 / steps:.4f} "
+          f"ms per step; loss first 10 mean {losses[:10].mean():.5f}, last 10 "
+          f"mean {losses[-10:].mean():.5f}; PSNR of training view 0 before "
+          f"{psnr_before:.3f} dB, after {psnr_after:.3f} dB")
+    print(f"[adapters] {len(rgbs)} llff frames in {video_s:.2f} s host time, "
+          f"depth > 0 on {min(covered):.4f}..{max(covered):.4f} of pixels; "
+          f"launches {launches}; peak device memory {peak / 2**30:.3f} GiB "
+          "over create and the video")
+    check(len(calls["sd_controlnet"]) == len(calls["lama"]) == views - 1
+          and len(calls["zoedepth"]) == views,
+          f"adapter calls {({k: len(v) for k, v in calls.items()})} for "
+          f"{views} views, {views - 1} of them dreamed")
+    check(all(devs == {dev.type} for v in calls.values() for devs, _ in v),
+          "an adapter was called with, or returned, a tensor off the card")
+    check(len(cn_calls) == views - 1 and all(
+        kw["strength"] == 0.9 and kw["num_inference_steps"] == 30
+        and kw["prompt"] == prompt and (kw["height"], kw["width"]) == (H, W)
+        for kw in cn_calls) and len(set(seeds)) > 1,
+        "the ControlNet pipe's arguments are wrong")
+    check([d.type for _, d in rec["transformers"]["pipelines"]] == [dev.type]
+          and all(size == (W, H) for size, _ in rec["transformers"]["calls"]),
+          f"the depth pipelines {rec['transformers']['pipelines']}")
+    check(bool(np.isfinite(cloud).all()) and cloud.shape[1] > H * W,
+          "the dreamed cloud is not finite, or too small")
+    check(app.trainer.state.params.capacity == CAPACITY
+          and app.trainer.pair_cap == app_mod.MAX_PAIR_CAP,
+          "the bake did not run at phase 9's capacity and pair budget")
+    check(steps == ADAPTER_BAKE_STEPS and bool(np.isfinite(losses).all()),
+          f"{steps} bake steps, or a loss that is not finite")
+    check(psnr_after > psnr_before, "the bake did not raise view 0's PSNR")
+    check(launches["blend_bwd"] == steps and launches["repack_cols"] == steps
+          and launches["blend_fwd"] == steps + len(cams),
+          f"launches {launches} for {steps} steps and {len(cams)} frames")
+    check(len(rgbs) == ADAPTER_FRAMES
+          and all(np.isfinite(d).all() for d in depths)
+          and min(covered) >= 0.05, "the video's frames are wrong or blank")
+
+    # the kernels against their plain versions on this path's own scene,
+    # after its counts were read, as phases 9, 10 and 14 do
+    whole_gradient(app.params, train_views[0].camera, "adapters' dreamed "
+                   f"scene, training view 0, pair budget {app.trainer.pair_cap}",
+                   pair_cap=app.trainer.pair_cap)
+    check_large_frame(app.params, cams[0], torch.zeros(3, device=dev),
+                      "adapters' dreamed scene, llff frame 0")
+    adapters_on_both_devices(dev, lama_path, image)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAILED: no CUDA device", file=sys.stderr)
@@ -2308,6 +2711,7 @@ def main() -> int:
             depth_training(dev, smi)
             view = viewer(dev, work / "scene.ply")
             ui = gradio_ui(dev, work)
+            adapt = model_adapters(dev, work)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2315,7 +2719,7 @@ def main() -> int:
 
     source = "luciddreamer_tpu_torch/csrc/{}.cu".format
     launches = {k: train["launches"][k] + dream[k] + zoe[k] + shard[k]
-                + view[k] + ui[k] for k in KERNELS}
+                + view[k] + ui[k] + adapt[k] for k in KERNELS}
     launches["blend_fwd"] += k1["serve_launches"]
     rows = [
         {"name": "blend_fwd", "route": "cuda", "source": source("blend_fwd"),
@@ -2337,7 +2741,8 @@ def main() -> int:
     print(f"[done] launches by path: serving {{'blend_fwd': "
           f"{k1['serve_launches']}}}, training {train['launches']}, dream to "
           f"video {dream}, dream with ZoeD_N {zoe}, sharded training "
-          f"{shard}, viewer {view}, Gradio UI {ui}; K1-K3 on band "
+          f"{shard}, viewer {view}, Gradio UI {ui}, model adapters {adapt}; "
+          f"K1-K3 on band "
           f"{shard_band}: max |d| {shard_errs}")
     print(json.dumps({"kernels": rows}))
     print(smi)

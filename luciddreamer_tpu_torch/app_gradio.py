@@ -14,9 +14,10 @@ import os
 
 from luciddreamer_tpu_torch.device import resolve_device
 
-# backend choices shown in the UI: the dream registries' names.  Backends
-# the port does not carry (sd, sd_controlnet, lama, zoedepth) stay listed
-# and raise NotImplementedError when a button runs them.
+# backend choices shown in the UI: the dream registries' names.  The
+# adapters (sd, sd_controlnet, lama, zoedepth) run on the app's device and
+# need their packages and checkpoints: a missing package raises ImportError
+# when a button runs one.
 INPAINTER_CHOICES = ["classic", "sd", "sd_controlnet", "lama"]
 DEPTH_CHOICES = ["radial", "zoedepth_flax", "zoedepth"]
 

@@ -25,15 +25,16 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["back_and_forth", "llff", "headbanging"],
                    help="Camera trajectory for video rendering")
     p.add_argument("--inpainter", type=str, default="classic",
-                   help="Inpainting backend (classic | registered name; "
-                        "sd, lama and sd_controlnet are not ported yet)")
+                   help="Inpainting backend (classic | sd | lama | "
+                        "sd_controlnet | registered name)")
     p.add_argument("--model_name", "-m", type=str, default=None,
-                   help="Checkpoint for inpainters that take one: hub id, "
-                        "local diffusers dir, or a .safetensors file "
-                        "(converted once)")
+                   help="SD checkpoint for the sd and sd_controlnet "
+                        "backends (or another inpainter that takes one): "
+                        "hub id, local diffusers dir, or a .safetensors "
+                        "file (converted once)")
     p.add_argument("--depth_model", type=str, default="radial",
-                   help="Depth backend (radial | zoedepth_flax | "
-                        "registered name; zoedepth is not ported yet)")
+                   help="Depth backend (radial | zoedepth | zoedepth_flax "
+                        "| registered name)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--diff_steps", type=int, default=50,
                    help="Inpainting inference steps")
@@ -70,7 +71,8 @@ def main(argv=None, device=None):
         inpainter_factory,
     )
 
-    # before anything is written or a checkpoint converted
+    # before anything is written or a checkpoint converted; an adapter
+    # whose package is missing raises ImportError here
     device = resolve_device(device)
     inpainter_factory(args.inpainter, args.model_name)
     depth_estimator_factory(args.depth_model)

@@ -222,7 +222,7 @@ def generate_pcd(
     cfg = config or DreamConfig()
     cam = cam or CameraConfig()
     inpainter = inpainter or get_inpainter(cfg.inpainter,
-                                           model=cfg.model_name)
+                                           model=cfg.model_name, device=dev)
     depth_estimator = depth_estimator or get_depth_estimator(
         cfg.depth_estimator, device=dev)
     H, W = cam.image_height, cam.image_width

@@ -107,6 +107,17 @@ def one_torch_thread():
     torch.set_num_threads(prev)
 
 
+def without_adapters(monkeypatch, *protocols_modules):
+    """Give each dream ``protocols`` module registries without the model
+    adapters for one test (restored afterwards): an adapter asked for then
+    registers anew, against the stand-ins the test installs."""
+    for mod in protocols_modules:
+        for reg in ("_INPAINTERS", "_DEPTH"):
+            monkeypatch.setattr(mod, reg, {
+                k: v for k, v in getattr(mod, reg).items()
+                if k not in ("sd", "lama", "sd_controlnet", "zoedepth")})
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden", "waterfall_golden.npz")
 EXAMPLE = os.path.join(REPO, "examples", "waterfall.png")

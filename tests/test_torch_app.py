@@ -428,20 +428,25 @@ def test_create_times_its_stages(golden_run):
 
 @pytest.mark.parametrize("inpainter, model, depth_model, error", [
     ("classic", "x.safetensors", None, ValueError),
-    ("sd", "x.safetensors", None, NotImplementedError),
-    ("sd", None, None, NotImplementedError),
-    ("classic", None, "zoedepth", NotImplementedError),
+    ("sd", "x.safetensors", None, ImportError),
+    ("sd", None, None, ImportError),
+    ("classic", None, "zoedepth", ImportError),
     ("classic", None, "no-such-model", KeyError),
 ])
 def test_cli_rejects_an_unusable_inpainter_first(tmp_path, monkeypatch,
                                                  inpainter, model,
                                                  depth_model, error):
     """A bad --inpainter / --model_name, and likewise a bad --depth_model,
-    fails before a checkpoint is converted or anything is written."""
+    fails before a checkpoint is converted or anything is written; so does
+    an adapter whose package (diffusers, transformers) is missing."""
     import luciddreamer_tpu_torch.dream as dream
+    from luciddreamer_tpu_torch.dream import protocols
 
     monkeypatch.setattr(dream, "resolve_sd_checkpoint", lambda *a, **k:
                         pytest.fail("the checkpoint was resolved first"))
+    port_helpers.without_adapters(monkeypatch, protocols)
+    monkeypatch.setitem(sys.modules, "diffusers", None)
+    monkeypatch.setitem(sys.modules, "transformers", None)
     argv = ["--image", str(EXAMPLE), "--inpainter", inpainter,
             "--save_dir", str(tmp_path / "out")]
     if model:

@@ -319,3 +319,33 @@ def test_viewer_reply_matches_direct_render(dev):
         direct = render_tiled(params, got, bg, backend="cuda")["render"]
     assert verify == "ok" and img == frame_bytes(direct)
     assert np.count_nonzero(np.frombuffer(img, np.uint8)) > 0.05 * len(img)
+
+
+def test_lama_adapter_on_cuda_matches_cpu(monkeypatch, tmp_path, dev):
+    """The scripted stand-in LaMa of chip_smoke.py phase 15 through the
+    port's ``lama`` adapter at 512x512 on the card against the CPU: within
+    1e-5 (TF32 off; the convolutions sum in another order), known pixels
+    kept exactly, the model on the card."""
+    from chip_smoke import scripted_lama
+    from luciddreamer_tpu_torch.dream import protocols
+    from luciddreamer_tpu_torch.utils import download
+
+    path = scripted_lama(tmp_path / "big-lama.pt")
+    monkeypatch.setattr(download, "fetch_checked",
+                        lambda url, dest, md5=None: str(path))
+    monkeypatch.setattr(protocols, "_INPAINTERS", {
+        k: v for k, v in protocols._INPAINTERS.items() if k != "lama"})
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rng = np.random.default_rng(3)
+    img = torch.as_tensor(rng.uniform(size=(512, 512, 3)).astype(np.float32))
+    mask = torch.zeros(512, 512)
+    mask[100:300, 150:400] = 1.0
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        inp = protocols.get_inpainter("lama", device=d)
+        assert {p.device.type for p in inp.model.parameters()} == {d.type}
+        outs[d.type] = inp(img.to(d), mask.to(d))
+    card = outs["cuda"].cpu()
+    assert outs["cuda"].device.type == "cuda"
+    assert float((card - outs["cpu"]).abs().max()) <= 1e-5
+    assert torch.equal(card[mask == 0], img[mask == 0])

@@ -12,6 +12,8 @@ within 0.1%, in its points within 1e-3 on all but 0.5% of the coordinates
 the pixels and in its depths within 1e-4 on all but 1% of the pixels (and
 1e-2 on those): tie flips in the interpolation, see the test.
 """
+import sys
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -27,7 +29,8 @@ from luciddreamer_tpu_torch.dream import maskops as tmask
 from luciddreamer_tpu_torch.dream import pipeline as tpipe
 from luciddreamer_tpu_torch.dream import protocols as tproto
 from luciddreamer_tpu_torch.dream import warp as twarp
-from tests.port_helpers import np_, one_torch_thread  # noqa: F401  (a fixture)
+from tests.port_helpers import (  # noqa: F401  (a fixture)
+    np_, one_torch_thread, without_adapters)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -183,12 +186,19 @@ def test_inpainter_and_depth_match_jax(rng):
     assert 0.0 <= float(noisy[0].min()) and float(noisy[0].max()) <= 1.0
 
 
-def test_unported_adapters_raise():
-    for name in ("sd", "lama", "sd_controlnet"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tproto.get_inpainter(name)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tproto.get_depth_estimator("zoedepth")
+def test_registry_builds_adapters_lazily_and_refuses(monkeypatch):
+    """The adapters register when first asked for: without their packages
+    ``sd``, ``sd_controlnet`` and ``zoedepth`` raise ImportError, and
+    ``lama`` (torch only) registers its factory."""
+    without_adapters(monkeypatch, tproto)
+    monkeypatch.setitem(sys.modules, "diffusers", None)
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    for name in ("sd", "sd_controlnet"):
+        with pytest.raises(ImportError):
+            tproto.get_inpainter(name, device="cpu")
+    with pytest.raises(ImportError):
+        tproto.get_depth_estimator("zoedepth", device="cpu")
+    assert tproto.inpainter_factory("lama").__name__ == "LamaInpainter"
     # zoedepth_flax is ported: the port's ZoeDepth, built where asked
     from luciddreamer_tpu_torch.models import ZoeDepthEstimator
 

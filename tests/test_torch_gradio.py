@@ -21,7 +21,7 @@ from luciddreamer_tpu_torch import video as videolib
 from luciddreamer_tpu_torch.config import CameraConfig, GSConfig
 from tests.helpers import make_random_gaussians
 from tests.port_helpers import (  # noqa: F401
-    EXAMPLE, PROMPT, one_torch_thread, port_params)
+    EXAMPLE, PROMPT, one_torch_thread, port_params, without_adapters)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 BACKENDS = ("classic", "radial", "SD1.5 (default)")
@@ -101,15 +101,35 @@ def test_render_only_without_a_scene_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("inpainter, depth", [
     ("sd", "radial"), ("sd_controlnet", "radial"), ("lama", "radial"),
     ("classic", "zoedepth")])
-def test_unported_backends_raise_when_run(monkeypatch, tmp_path, inpainter,
-                                          depth):
-    _, record = _demo(monkeypatch, tag, save_dir=str(tmp_path / "out"),
-                      device="cpu")
+def test_adapter_backends_when_run(monkeypatch, tmp_path, inpainter, depth):
+    """Without diffusers, "Create scene" with sd or sd_controlnet raises
+    ImportError before anything is written; lama and zoedepth under
+    chip_smoke.py phase 15's stand-ins (a scripted LaMa, a transformers
+    depth pipeline) bake a 32x32 scene and write its PLY."""
+    from luciddreamer_tpu_torch.dream import protocols
+    from luciddreamer_tpu_torch.utils import download
+
+    without_adapters(monkeypatch, protocols)
+    monkeypatch.setitem(sys.modules, "diffusers", None)
+    lama = chip_smoke.scripted_lama(tmp_path / "big-lama.pt")
+    monkeypatch.setattr(download, "fetch_checked",
+                        lambda url, dest, md5=None: str(lama))
+    monkeypatch.setitem(sys.modules, "transformers",
+                        chip_smoke.transformers_stub((24, 40))[0])
+    _tiny_app(monkeypatch)
+    out = tmp_path / "out"
+    _, record = _demo(monkeypatch, tag, save_dir=str(out), device="cpu")
     image = Image.open(EXAMPLE).convert("RGB")
-    with pytest.raises(NotImplementedError):
-        _bound(record, "Create scene")(image, "", "", "rotate360", 1, 1,
-                                       inpainter, depth, "SD1.5 (default)")
-    assert not (tmp_path / "out").exists()
+    create = functools.partial(_bound(record, "Create scene"), image, "", "",
+                               "rotate360", 1, 1, inpainter, depth,
+                               "SD1.5 (default)")
+    if inpainter.startswith("sd"):
+        with pytest.raises(ImportError):
+            create()
+        assert not out.exists()
+    else:
+        assert create() == str(out / "gsplat.ply")
+        assert os.path.getsize(out / "gsplat.ply") > 0
 
 
 def _tiny_app(monkeypatch, size=32):
