@@ -206,9 +206,28 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    rounded to 8 bits) with its mask image equal and its condition within
    1e-5, ``zoedepth`` within 1e-5 of the depth's max.
 
+16. The programs that run the JAX package on its chip, through the port
+   (``luciddreamer_tpu_torch.smoke``, ``bench``, ``profile_step``,
+   ``entry``): BASELINE config 1 (``tests/test_baseline_config1.py``: 10k
+   Gaussians from seed 3 at 512x512, pair_cap 300,000, chunk 128), the
+   tiled render with K1-K3 against the dense oracle, which recomputes each
+   chunk in its backward, on render (atol 1e-5), depth (atol 5e-4) and
+   every parameter group's gradient (more than 99.99% of elements within
+   5e-3 of the group's max, all within 5e-2); ``tools/tpu_smoke.py``'s
+   drives: 20k Gaussians (seed 7) at pair_cap 400,000 and chunk 128
+   without overflow, with finite gradients and the 64x64 crop [224:288]
+   within 1e-5 of the dense oracle, and the bench scene at pair_cap
+   4,000,000 (4,000,768 slots) and chunk 128, forward and backward without
+   overflow and with finite gradients; ``entry()`` on the card against
+   its ``fn`` on CPU copies of its arguments (render 1e-5, depth 5e-4);
+   ``bench.run()`` at ``bench.py``'s shape and protocol, printing its
+   lines and its JSON line (K1-K3 once per step); ``profile_step``'s four
+   cumulative stages, by host wall and by events.  K1-K3 must each be
+   launched in the phase.
+
 Prints the kernels line (``launches``: the sum of each kernel's counts
-over the eight main-path runs, phases 3, 7, 9, 10, 11, 13, 14 and 15) and
-the card line, then the result line last.
+over the nine main-path runs, phases 3, 7, 9, 10, 11, 13, 14, 15 and 16)
+and the card line, then the result line last.
 Exits non-zero, printing no result, when any phase fails or no CUDA device
 is present.
 """
@@ -313,21 +332,12 @@ def peak_memory(fn):
 
 
 def make_scene(P, seed, device):
-    """The bench scene generator: a Gaussian blob 3 units ahead of the
-    origin camera, SH degree 3, log-scales in [-5.5, -3.5]."""
-    from luciddreamer_tpu_torch.core.types import GaussianParams
+    """The bench scene generator (``luciddreamer_tpu_torch.bench``): a
+    Gaussian blob 3 units ahead of the origin camera, SH degree 3,
+    log-scales in [-5.5, -3.5]."""
+    from luciddreamer_tpu_torch.bench import bench_scene
 
-    rng = np.random.default_rng(seed)
-    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
-    return GaussianParams(
-        xyz=f32(rng.normal(size=(P, 3)) + [0, 0, 3.0]),
-        features_dc=f32(rng.normal(size=(P, 1, 3)) * 0.5),
-        features_rest=f32(rng.normal(size=(P, 15, 3)) * 0.1),
-        scaling=f32(rng.uniform(-5.5, -3.5, size=(P, 3))),
-        rotation=f32(rng.normal(size=(P, 4))),
-        opacity=f32(rng.uniform(-2.0, 3.0, size=(P, 1))),
-        alive=torch.ones(P, dtype=torch.bool, device=device),
-    )
+    return bench_scene(P, seed, device)
 
 
 def timed(fn, reps):
@@ -1511,11 +1521,9 @@ SHARD_PAIR_CAP = 9_600_000    # Trainer's default at capacity 1.2M
 
 
 def counts():
-    from luciddreamer_tpu_torch.render import cuda_blend, cuda_repack
+    from luciddreamer_tpu_torch.bench import launch_counts
 
-    return {"blend_fwd": cuda_blend.blend_fwd.launches,
-            "blend_bwd": cuda_blend.blend_bwd.launches,
-            "repack_cols": cuda_repack.repack_cols.launches}
+    return launch_counts()
 
 
 def zero_counts():
@@ -2666,6 +2674,76 @@ def model_adapters(dev, work):
     return launches
 
 
+# ------------------------------------------ the JAX package's chip programs
+
+def chip_programs(dev):
+    """Phase 16: the programs that run the JAX package on its chip, through
+    the port: BASELINE config 1 against the dense oracle, the drives of
+    ``tools/tpu_smoke.py``, ``entry()`` against the CPU, the bench at its
+    defaults and the four stages of the step's profile; returns each
+    kernel's launches in the phase."""
+    from luciddreamer_tpu_torch import bench, profile_step, smoke
+    from luciddreamer_tpu_torch.render.tiled import aligned_pair_capacity
+
+    zero_counts()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c1 = smoke.baseline_config1(dev)
+    peak = torch.cuda.max_memory_allocated()
+    c = smoke.CONFIG1
+    print(f"[config1] {c['P']} Gaussians (seed {c['seed']}) {smoke.SIZE}x"
+          f"{smoke.SIZE}, pair_cap {c['pair_cap']}, chunk {c['chunk']}: "
+          f"{c1['num_pairs']} pairs; tiled (K1, K2, K3) {c1['tiled_s']:.2f} s, "
+          f"dense oracle with per-chunk recomputation {c1['dense_s']:.2f} s, "
+          f"peak device memory {peak / 2**30:.3f} GiB; max |d| render "
+          f"{c1['render']:.3e} (atol {smoke.CONFIG1_RENDER_ATOL}), depth "
+          f"{c1['depth']:.3e} (atol {smoke.CONFIG1_DEPTH_ATOL})")
+    print("[config1] gradient, share within "
+          f"{smoke.CONFIG1_GRAD_BULK} of the group's max (> "
+          f"{smoke.CONFIG1_GRAD_SHARE}) / max relative error (< "
+          f"{smoke.CONFIG1_GRAD_MAX}): " + ", ".join(
+              f"{k} {g['share']:.6f} / {g['max_err']:.3e}"
+              for k, g in c1["groups"].items()))
+    check(not c1["misses"], f"BASELINE config 1: {c1['misses']}")
+
+    d20 = smoke.drive_20k(dev)
+    c = smoke.DRIVE_20K
+    print(f"[tpu_smoke] 1: {c['P']} Gaussians (seed {c['seed']}), pair_cap "
+          f"{c['pair_cap']}, chunk {c['chunk']}: {d20['num_pairs']} pairs, "
+          f"gradients finite {all(d20['finite'].values())}, 64x64 crop "
+          f"against the dense oracle max |d| {d20['crop']:.3e} (atol "
+          f"{smoke.CROP_ATOL})")
+    check(not d20["misses"], f"the 20k drive: {d20['misses']}")
+    b4 = smoke.bench_shape(dev)
+    c = smoke.BENCH_SHAPE
+    print(f"[tpu_smoke] 2: the bench scene, pair_cap {c['pair_cap']} "
+          f"({aligned_pair_capacity(c['pair_cap'], c['chunk'])} slots), chunk "
+          f"{c['chunk']}: {b4['num_pairs']} pairs, gradients finite "
+          f"{all(b4['finite'].values())}")
+    check(not b4["misses"], f"the bench shape at a 4M budget: {b4['misses']}")
+    ent = smoke.graft_entry(dev)
+    print(f"[tpu_smoke] 3: entry() {ent['shape']} on the card against the "
+          f"CPU: max |d| render {ent['render']:.3e} (atol "
+          f"{smoke.ENTRY_RENDER_ATOL}), depth {ent['depth']:.3e} (atol "
+          f"{smoke.ENTRY_DEPTH_ATOL})")
+    check(not ent["misses"], f"entry(): {ent['misses']}")
+
+    res = bench.run(device=dev)
+    check(res["launches_per_step"] == dict.fromkeys(KERNELS, 1.0),
+          f"the bench step's launches {res['launches_per_step']}")
+    rows = profile_step.run(device=dev)
+    check(all(np.isfinite([r["wall_ms"], r["device_ms"]]).all() for r in rows),
+          "a stage of the profile has no time")
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"[chip programs] phase 16 in {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+    check(all(launches[k] > 0 for k in KERNELS),
+          f"a kernel was not launched in phase 16: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAILED: no CUDA device", file=sys.stderr)
@@ -2712,6 +2790,7 @@ def main() -> int:
             view = viewer(dev, work / "scene.ply")
             ui = gradio_ui(dev, work)
             adapt = model_adapters(dev, work)
+            progs = chip_programs(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2719,7 +2798,7 @@ def main() -> int:
 
     source = "luciddreamer_tpu_torch/csrc/{}.cu".format
     launches = {k: train["launches"][k] + dream[k] + zoe[k] + shard[k]
-                + view[k] + ui[k] + adapt[k] for k in KERNELS}
+                + view[k] + ui[k] + adapt[k] + progs[k] for k in KERNELS}
     launches["blend_fwd"] += k1["serve_launches"]
     rows = [
         {"name": "blend_fwd", "route": "cuda", "source": source("blend_fwd"),
@@ -2741,7 +2820,8 @@ def main() -> int:
     print(f"[done] launches by path: serving {{'blend_fwd': "
           f"{k1['serve_launches']}}}, training {train['launches']}, dream to "
           f"video {dream}, dream with ZoeD_N {zoe}, sharded training "
-          f"{shard}, viewer {view}, Gradio UI {ui}, model adapters {adapt}; "
+          f"{shard}, viewer {view}, Gradio UI {ui}, model adapters {adapt}, "
+          f"the JAX package's chip programs {progs}; "
           f"K1-K3 on band "
           f"{shard_band}: max |d| {shard_errs}")
     print(json.dumps({"kernels": rows}))

@@ -9,7 +9,8 @@ multi-device form on ``torch.distributed`` (``parallel/``: tile-row bands
 over a (data, tiles) mesh of processes, ``ShardedTrainer``), and ZoeDepth
 inference and training (``models/``: ZoeD_N, ZoeD_K, ZoeD_NK,
 ``depth_trainer``), the SIBR live-viewer bridge (``viewer``) and the
-Gradio UI (``app_gradio``).  The
+Gradio UI (``app_gradio``), and the programs that measure and gate it on
+the card (``bench``, ``profile_step``, ``smoke``, ``entry``).  The
 renderer's forward and backward tile blend and the cotangent column repack
 of its binning are hand-written CUDA kernels (``csrc/blend_fwd.cu``,
 ``csrc/blend_bwd.cu``, ``csrc/repack_cols.cu``).  It imports ``torch``,

@@ -30,6 +30,15 @@ def default_pair_capacity(capacity: int, multiplier: float = 8.0) -> int:
     return max(4096, int(capacity * multiplier))
 
 
+def aligned_pair_capacity(pair_cap: int, chunk: int) -> int:
+    """The pair slots ``render_tiled`` holds for a budget of ``pair_cap``:
+    the JAX package's alignment (luciddreamer_tpu/render/tiled.py:60-68),
+    so that both hold the same capacity and overflow on the same scenes:
+    lcm(chunk, 1024) from 1024 up, chunk below so tiny caps still overflow."""
+    align = math.lcm(chunk, 1024) if pair_cap >= 1024 else chunk
+    return ((pair_cap + align - 1) // align) * align
+
+
 def render_tiled(
     params: GaussianParams,
     camera: Camera,
@@ -54,11 +63,7 @@ def render_tiled(
     grid_x, grid_y = num_tiles_for(H, W, tile_size)
     if pair_cap is None:
         pair_cap = default_pair_capacity(params.capacity)
-    # the JAX package's alignment (luciddreamer_tpu/render/tiled.py:60-68),
-    # so that both hold the same capacity and overflow on the same scenes:
-    # lcm(chunk, 1024) from 1024 up, chunk below so tiny caps still overflow
-    align = math.lcm(chunk, 1024) if pair_cap >= 1024 else chunk
-    pair_cap = ((pair_cap + align - 1) // align) * align
+    pair_cap = aligned_pair_capacity(pair_cap, chunk)
 
     proc = preprocess_gaussians(
         params, camera, active_sh_degree, tile_size, scale_modifier,

@@ -402,6 +402,37 @@ def test_render_dense_matches_jax(rng):
                             5e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("case", ["blob", "wall"])
+def test_render_dense_recomputation_changes_nothing(monkeypatch, rng, case):
+    """The oracle recomputes each chunk in its backward pass: its outputs
+    and every gradient are bit-equal to those of the same chunks kept
+    whole in the graph (``checkpoint`` replaced by a direct call)."""
+    from luciddreamer_tpu_torch.render import dense
+
+    jp, deg, _ = _scene(rng, case)
+    W = H = 32
+    cam = port_camera(make_test_camera(W, H))
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    wr, wd = (torch.as_tensor(a) for a in _render_loss_weights(rng, W, H))
+
+    def run():
+        params = port_params(jp)
+        out = tdense(params, cam, bg, active_sh_degree=deg, chunk=16)
+        _loss(out, wr, wd, torch).backward()
+        return out, {n: getattr(params, PORT_NAMES[n]).grad for n in GROUPS}
+
+    out, grads = run()
+    monkeypatch.setattr(dense, "checkpoint",
+                        lambda fn, *args, use_reentrant: fn(*args))
+    ref, ref_grads = run()
+    for k in ("render", "depth", "acc", "final_T", "n_contrib"):
+        assert torch.equal(out[k], ref[k]), k
+    for n in GROUPS:
+        # the wall renders at SH degree 0: f_rest gets no gradient
+        assert torch.count_nonzero(ref_grads[n]) > 0 or (n, deg) == ("f_rest", 0), n
+        assert torch.equal(grads[n], ref_grads[n]), n
+
+
 def test_blend_wrappers_refuse_what_the_kernels_do_not_take():
     """K1's and K2's wrappers raise on a ``src`` that is not a contiguous
     int32 vector on the table's device, a table that is not (N, 16)

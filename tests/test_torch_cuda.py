@@ -349,3 +349,64 @@ def test_lama_adapter_on_cuda_matches_cpu(monkeypatch, tmp_path, dev):
     assert outs["cuda"].device.type == "cuda"
     assert float((card - outs["cpu"]).abs().max()) <= 1e-5
     assert torch.equal(card[mask == 0], img[mask == 0])
+
+
+def test_baseline_config1_tiled_matches_dense_oracle(dev):
+    """BASELINE config 1 at full scale, the twin of
+    tests/test_baseline_config1.py at its tolerances: 10k Gaussians (seed 3)
+    at 512x512, the tiled render (K1; K2 and K3 in its backward) against
+    the dense oracle, which recomputes each chunk in its backward, on RGB,
+    depth and every parameter group's gradient."""
+    from luciddreamer_tpu_torch.render.dense import render_dense
+    from luciddreamer_tpu_torch.smoke import config1_scene
+
+    rng = np.random.default_rng(3)
+    P, S = 10_000, 512
+    params = config1_scene(rng, P, dev)
+    cam = make_camera(np.eye(4), 0.8279, 0.8279, S, S, device=dev)
+    bg = torch.zeros(3, device=dev)
+    tiled = lambda p: render_tiled(p, cam, bg, pair_cap=300_000, chunk=128)
+    with torch.no_grad():
+        t_out = tiled(params)
+        d_out = render_dense(params, cam, bg)
+    assert not bool(t_out["overflow"])
+    np.testing.assert_allclose(t_out["render"].cpu().numpy(),
+                               d_out["render"].cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(t_out["depth"].cpu().numpy(),
+                               d_out["depth"].cpu().numpy(), atol=5e-4)
+
+    tgt = torch.as_tensor(rng.uniform(size=(3, S, S)), dtype=torch.float32,
+                          device=dev)
+
+    def grads(render):
+        out = render(params)
+        loss = ((out["render"] - tgt).abs().mean()
+                + 0.1 * out["depth"].mean())
+        return torch.autograd.grad(loss, list(params.parameters()))
+
+    names = list(params.param_dict())
+    for k, a, b in zip(names, grads(tiled),
+                       grads(lambda p: render_dense(p, cam, bg))):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert np.isfinite(a).all(), k
+        err = np.abs(a - b) / (np.max(np.abs(b)) + 1e-12)
+        assert np.mean(err <= 5e-3) > 0.9999, (k, np.mean(err <= 5e-3))
+        assert np.max(err) < 5e-2, (k, np.max(err))
+
+
+def test_entry_and_bench_step_on_the_card(dev):
+    """entry()'s fn on the card against the same fn on CPU copies of its
+    arguments (render 1e-5, depth 5e-4), and one bench step at a small
+    shape through K1, K2 and K3, once each."""
+    from luciddreamer_tpu_torch import bench
+    from luciddreamer_tpu_torch.smoke import graft_entry
+
+    res = graft_entry(dev)
+    assert res["misses"] == [] and res["shape"] == (3, 256, 256), res
+    step = bench.fwd_bwd(bench.bench_scene(2000, device=dev), _camera(dev),
+                         torch.zeros(3, device=dev), 40_000, 128)
+    before = bench.launch_counts()
+    s, grads, out = step(torch.zeros((), device=dev))
+    after = bench.launch_counts()
+    assert not bool(out["overflow"]) and bool(torch.isfinite(s))
+    assert {k: after[k] - before[k] for k in after} == dict.fromkeys(after, 1)
