@@ -3,8 +3,9 @@
 NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
 
 1. Set-up: prints the card's name and power limit, builds the kernels K1
-   (``csrc/blend_fwd.cu``), K2 (``csrc/blend_bwd.cu``) and K3
-   (``csrc/repack_cols.cu``) with nvcc, one process each, all at once, into
+   (``csrc/blend_fwd.cu``), K2 (``csrc/blend_bwd.cu``), K3
+   (``csrc/repack_cols.cu``) and the exact knn (``csrc/knn3_exact.cu``)
+   with nvcc, one process each, all at once, into
    ``build/kernels/``, and prints the build time, ptxas's lines and the
    blocks per SM that its registers and shared memory imply.
 2. K1 against its plain PyTorch version on a 20k-Gaussian 512x512 scene:
@@ -225,9 +226,35 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    cumulative stages, by host wall and by events.  K1-K3 must each be
    launched in the phase.
 
-Prints the kernels line (``launches``: the sum of each kernel's counts
-over the nine main-path runs, phases 3, 7, 9, 10, 11, 13, 14, 15 and 16)
-and the card line, then the result line last.
+17. The last two pieces of the port.  (a) The exact 3-NN, ``knn3_exact``
+   (``csrc/knn3_exact.cu``, the counterpart of the JAX package's host C++
+   KD-tree ``native/knn_native.cpp::mean_sq_dist_3nn``, not a TPU kernel),
+   through ``points.mean_sq_dist_3nn_exact`` on 50,000 seeded points,
+   phase 7's 400,000-point ``create_from_pcd`` cloud and 1.2M points (one
+   launch each); bit-equal to its plain version on every row at 50k and
+   400k and on 1,000 sampled rows at 1.2M; the kernel and the plain
+   version within 1e-5 relative of a float64 brute force on 1,000 sampled
+   rows of each cloud, the formula knn's (``points/knn.py``) miss on them
+   printed beside; edge cases n = 0...4, every point three times, and
+   20,000 points 1e3 from the origin (where the formula cancels worst),
+   bit-equal and within 1e-5 of float64 (+1e-7); device ms by events at
+   400k and 1.2M against the function's bound (its bytes), the brute
+   force's own bound (n (n - 1) pairs of 8 fp32 operations), the formula
+   knn's one call and the code it replaces: the JAX package's KD-tree,
+   compiled by g++ from ``native/knn_native.cpp`` and timed on the host
+   (one call, every row within 1e-5 of the kernel); and the plain
+   version's one call at 400k.  (b) ``grad_overlap.run`` (the twin of ``tools/grad_overlap.py``)
+   at its own configuration (100,000 Gaussians, 512x512, pair_cap 400,000,
+   chunk 128) in an NCCL world of one on a 1 x 1 mesh: both steps warmed
+   up, timed and traced; its report and verdict printed; K1-K3 launched
+   once per step by the counts and once per step in each trace; no ring
+   window (a world of one sends nothing); the two steps agree (loss 1e-5
+   relative, Adam's first moments 5e-4 of each group's max).
+
+Prints the kernels line (``launches``: for K1-K3 the sum of each kernel's
+counts over the ten main-path runs, phases 3, 7, 9, 10, 11, 13, 14, 15, 16
+and 17 (b); for ``knn3_exact`` its three calls in 17 (a)) and the card
+line, then the result line last.
 Exits non-zero, printing no result, when any phase fails or no CUDA device
 is present.
 """
@@ -257,7 +284,8 @@ H = W = 512
 TRAIN_VIEWS = 4
 TRAIN_ITERS = 40
 PCD_POINTS = 400_000          # the largest point cloud the app builds from
-KERNELS = ("blend_fwd", "blend_bwd", "repack_cols")
+BLEND_KERNELS = ("blend_fwd", "blend_bwd", "repack_cols")
+KERNELS = BLEND_KERNELS + ("knn3_exact",)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM3 rate
 # and fp32 rate outside the tensor cores.  The special-function rate (exp,
@@ -340,11 +368,22 @@ def make_scene(P, seed, device):
     return bench_scene(P, seed, device)
 
 
-def timed(fn, reps):
+def timed(fn, reps, once=False):
     """(device ms, host wall ms) per call over ``reps`` back-to-back calls.
     Device: CUDA events around the calls, enqueued behind a device-side
     sleep so that the host's enqueue time is not what is measured.  Wall:
-    host clock around the calls and a synchronize."""
+    host clock around the calls and a synchronize.  With ``once``: one
+    call of ``fn`` alone (seconds of work, which a warm-up and two timed
+    rounds would triple), by CUDA events: (device ms, its result)."""
+    if once:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), out
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2730,7 +2769,7 @@ def chip_programs(dev):
     check(not ent["misses"], f"entry(): {ent['misses']}")
 
     res = bench.run(device=dev)
-    check(res["launches_per_step"] == dict.fromkeys(KERNELS, 1.0),
+    check(res["launches_per_step"] == dict.fromkeys(BLEND_KERNELS, 1.0),
           f"the bench step's launches {res['launches_per_step']}")
     rows = profile_step.run(device=dev)
     check(all(np.isfinite([r["wall_ms"], r["device_ms"]]).all() for r in rows),
@@ -2739,8 +2778,236 @@ def chip_programs(dev):
     launches = counts()
     print(f"[chip programs] phase 16 in {time.perf_counter() - t0:.1f} s; "
           f"launches {launches}")
-    check(all(launches[k] > 0 for k in KERNELS),
+    check(all(launches[k] > 0 for k in BLEND_KERNELS),
           f"a kernel was not launched in phase 16: {launches}")
+    return launches
+
+
+# ------------------------------------------------- phase 17: the last pieces
+
+KNN_SAMPLE = 1000             # rows held against float64 at 400k and 1.2M
+KNN_SMALL = 50_000            # every row held against the plain version
+KNN_RTOL = 1e-5               # against float64 (three fp32 products, two sums)
+# one squared distance: 3 subtractions, 3 products, 2 sums.  The function's
+# bound counts the 3 distances each point returns (any exact method computes
+# those; a KD-tree few more), so its bytes set it; the brute force that
+# knn3_exact runs computes n (n - 1), its own bound, printed beside.
+KNN_FLOPS_PER_PAIR = 8
+
+
+def pcd_cloud(n, seed):
+    """Phase 7's ``create_from_pcd`` cloud (seed 44: its 400k points), or
+    another of ``n`` points: uniform in [-2, 2] x [-2, 2] x [2, 6]."""
+    g = np.random.default_rng(seed)
+    return g.uniform([-2, -2, 2], [2, 2, 6], (n, 3)).astype(np.float32)
+
+
+def knn_float64(points, rows, row_block=1024, block=65536):
+    """float64 mean of the 3 smallest squared distances from each of
+    ``rows`` to the other points, by exact differences; missing ones 0."""
+    p = points.double()
+    out = []
+    for r0 in range(0, rows.shape[0], row_block):
+        qi = rows[r0:r0 + row_block]
+        q = p[qi]
+        best = torch.full((qi.shape[0], 3), float("inf"), dtype=torch.float64,
+                          device=p.device)
+        for c0 in range(0, p.shape[0], block):
+            d = ((p[None, c0:c0 + block] - q[:, None]) ** 2).sum(-1)
+            idx = torch.arange(c0, c0 + d.shape[1], device=p.device)
+            d[idx[None] == qi[:, None]] = float("inf")
+            blk = torch.topk(d, min(3, d.shape[1]), dim=1, largest=False).values
+            best = torch.topk(torch.cat([best, blk], 1), 3, dim=1,
+                              largest=False).values
+        out.append(torch.where(torch.isfinite(best), best, 0.0).sum(1) / 3.0)
+    return torch.cat(out)
+
+
+def rel_err(out, ref):
+    """max |out - ref| / |ref| (|ref| floored at 1e-30)."""
+    return float(((out.double() - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+
+
+def kdtree_knn():
+    """The code ``knn3_exact`` replaces, the JAX package's host KD-tree
+    (``luciddreamer_tpu/native/knn_native.cpp``, one thread), compiled by
+    g++ with that package's flags into ``build/kdtree/`` and called through
+    ctypes; no Python module of that package is imported.  Returns a
+    function (n, 3) float32 array -> (n,) float32 array."""
+    src = ROOT / "luciddreamer_tpu" / "native" / "knn_native.cpp"
+    lib_path = ROOT / "build" / "kdtree" / "_knn_native.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
+                    "-std=c++17", str(src), "-o", str(lib_path)], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(lib_path)).mean_sq_dist_3nn
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+
+    def knn(points):
+        pts = np.ascontiguousarray(points, np.float32)
+        out = np.empty(pts.shape[0], np.float32)
+        fn(pts.ctypes.data, pts.shape[0], out.ctypes.data)
+        return out
+    return knn
+
+
+def exact_knn(dev, smi):
+    """Phase 17 (a): ``knn3_exact`` through ``mean_sq_dist_3nn_exact`` on
+    50k seeded points, phase 7's 400k cloud and 1.2M, held against its
+    plain version and float64, with edge cases and times; returns its
+    kernels-line row."""
+    from luciddreamer_tpu_torch.points import knn_exact
+    from luciddreamer_tpu_torch.points.knn import mean_sq_dist_3nn
+
+    wrapper = knn_exact.mean_sq_dist_3nn_exact
+    plain = knn_exact.mean_sq_dist_3nn_exact_torch
+    clouds = {n: torch.as_tensor(pcd_cloud(n, 44 if n == PCD_POINTS else 45 + i),
+                                 device=dev)
+              for i, n in enumerate((KNN_SMALL, PCD_POINTS, CAPACITY))}
+    # ---- the main path: the entry point on each cloud ----
+    torch.cuda.synchronize()
+    wrapper.launches = 0
+    outs = {n: wrapper(p) for n, p in clouds.items()}
+    torch.cuda.synchronize()
+    launches = wrapper.launches
+    check(launches == len(clouds), f"knn3_exact launched {launches} times for "
+          f"{len(clouds)} clouds")
+
+    # ---- against the plain version and float64 ----
+    g = np.random.default_rng(46)
+    worst = 0.0
+    small = plain(clouds[KNN_SMALL])
+    check(torch.equal(outs[KNN_SMALL], small),
+          f"knn3_exact differs from its plain version at {KNN_SMALL} points")
+    formula = {}
+    for n, p in clouds.items():
+        rows = torch.as_tensor(np.sort(g.choice(n, KNN_SAMPLE, replace=False)),
+                               device=dev)
+        ref = knn_float64(p, rows)
+        got, want = outs[n][rows], plain(p, rows)
+        eq = torch.equal(got, want)
+        worst = max(worst, float((got - want).abs().max()))
+        rk, rp = rel_err(got, ref), rel_err(want, ref)
+        rf = "not run"
+        if n != KNN_SMALL:      # one call, timed: it takes seconds
+            f_ms, f_out = timed(lambda: mean_sq_dist_3nn(p), 1, once=True)
+            formula[n] = f_ms
+            rf = f"{rel_err(f_out[rows], ref):.3e}"
+            del f_out
+        print(f"[knn] {n} points: kernel against plain on {KNN_SAMPLE} "
+              f"sampled rows bit-equal {eq}; max relative error against "
+              f"float64: kernel {rk:.3e}, plain {rp:.3e}, the formula knn "
+              f"(points/knn.py) {rf} (limit {KNN_RTOL})")
+        check(eq and rk <= KNN_RTOL and rp <= KNN_RTOL,
+              f"knn3_exact disagrees at {n} points")
+
+    # ---- edge cases ----
+    rng = np.random.default_rng(47)
+    edge = {f"n={n}": rng.normal(size=(n, 3)) for n in range(5)}
+    edge["duplicates"] = np.repeat(rng.normal(size=(2000, 3)), 3, axis=0)
+    edge["far from the origin"] = rng.normal(size=(20_000, 3)) + 1e3
+    for name, pts in edge.items():
+        p = torch.as_tensor(pts.astype(np.float32), device=dev)
+        got, want = wrapper(p), plain(p)
+        torch.cuda.synchronize()
+        eq = torch.equal(got, want) and got.shape == (p.shape[0],)
+        rows = torch.arange(p.shape[0], device=dev)
+        ref = knn_float64(p, rows) if p.shape[0] else got.double()
+        ok = bool(((got.double() - ref).abs()
+                   <= KNN_RTOL * ref.abs() + 1e-7).all())
+        miss = ""
+        if name == "far from the origin":
+            miss = (f"; the formula knn's max relative error "
+                    f"{rel_err(mean_sq_dist_3nn(p), ref):.3e}")
+        print(f"[knn] edge case {name}: bit-equal to plain {eq}, within "
+              f"{KNN_RTOL} of float64 {ok}{miss}")
+        check(eq and ok, f"knn3_exact fails the edge case {name}")
+
+    # ---- times (these launches are not the main path's) ----
+    kdtree, times = kdtree_knn(), {}
+    for n in (PCD_POINTS, CAPACITY):
+        p = clouds[n]
+        ms, _ = timed(lambda: wrapper(p), 5 if n == PCD_POINTS else 2)
+        host = p.cpu().numpy()
+        t0 = time.perf_counter()
+        tree = kdtree(host)
+        tree_ms = (time.perf_counter() - t0) * 1e3
+        ref = outs[n].cpu().numpy()
+        tree_ok = bool((np.abs(ref - tree) <= KNN_RTOL * np.abs(tree) + 1e-7).all())
+        bound, by, parts = bound_of(16 * n, KNN_FLOPS_PER_PAIR * 3 * n, 0)
+        brute_ms = KNN_FLOPS_PER_PAIR * n * (n - 1) / FP32_FLOPS_PER_S * 1e3
+        times[n] = dict(ms=ms, bound_ms=bound, bound_by=by,
+                        bytes_bound_ms=parts["bytes"],
+                        operations_bound_ms=parts["operations"],
+                        brute_force_bound_ms=brute_ms, kdtree_ms=tree_ms)
+        print(f"[knn] {n} points: knn3_exact {ms:.4f} ms by events against "
+              f"the function's bound {bound:.4f} ({by}; {ms and bound / ms:.4%} "
+              f"of it) and the brute force's own bound {brute_ms:.4f} (n (n - "
+              f"1) pairs of {KNN_FLOPS_PER_PAIR} fp32 operations; "
+              f"{ms and brute_ms / ms:.1%} of it); the JAX package's host "
+              f"KD-tree {tree_ms:.4f} ms (one call, one thread, host clock; "
+              f"every row within {KNN_RTOL} of the kernel {tree_ok}); the "
+              f"formula knn {formula[n]:.4f} ms (one call) | {smi}")
+        check(tree_ok, f"knn3_exact disagrees with the KD-tree at {n} points")
+    plain_ms, full = timed(lambda: plain(clouds[PCD_POINTS]), 1, once=True)
+    check(torch.equal(full, outs[PCD_POINTS]),
+          f"knn3_exact differs from its plain version at {PCD_POINTS} points")
+    print(f"[knn] {PCD_POINTS} points, every row: the plain version "
+          f"{plain_ms:.4f} ms (one call), bit-equal to the kernel | {smi}")
+    return {"name": "knn3_exact", "route": "cuda",
+            "source": "luciddreamer_tpu_torch/csrc/knn3_exact.cu",
+            "replaces": "luciddreamer_tpu/native/knn_native.cpp:109",
+            "note": "the JAX package's host C++ knn, not a TPU kernel",
+            "launches": launches, "max_abs_err": worst,
+            **times[PCD_POINTS], "plain_ms": plain_ms, "library_ms": None,
+            "formula_knn_ms": formula[PCD_POINTS],
+            "at_1.2M": dict(times[CAPACITY],
+                            formula_knn_ms=formula[CAPACITY])}
+
+
+def overlap_trace(dev, smi):
+    """Phase 17 (b): ``grad_overlap.run`` (the twin of
+    ``tools/grad_overlap.py``) at its own configuration in an NCCL world
+    of one; returns K1-K3's launches in it."""
+    import torch.distributed as dist
+
+    from luciddreamer_tpu_torch import grad_overlap
+    from luciddreamer_tpu_torch.parallel import make_mesh, multihost
+
+    check(multihost.initialize(f"127.0.0.1:{free_port()}", num_processes=1,
+                               process_id=0, device=dev),
+          "initialize did not create a process group")
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        rep = grad_overlap.run(mesh, dev)
+        torch.cuda.synchronize()
+        launches = counts()
+        run_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    lines = grad_overlap.report_lines(rep)
+    for line in lines:
+        print(line)
+    steps = sum(rep["steps_run"].values())
+    print(f"[grad_overlap] {run_s:.1f} s host time, {steps} steps and "
+          f"{rep['target_renders']} target render; launches {launches} | {smi}")
+    check(launches == {"blend_fwd": steps + rep["target_renders"],
+                       "blend_bwd": steps, "repack_cols": steps},
+          f"launches {launches} for the twin's {steps} steps and "
+          f"{rep['target_renders']} target renders")
+    for name in ("batch", "overlapped"):
+        r = rep[name]
+        check(r["kernels"] == dict.fromkeys(BLEND_KERNELS, 1.0),
+              f"the {name} step's trace has K1-K3 {r['kernels']} a step")
+        check(not r["overflow"], f"the {name} step overflowed")
+    check(not any("SendRecv" in w for w in rep["overlapped"]["window_names"]),
+          "a ring window in a world of one")
+    check(rep["agreement"]["ok"], "the overlapped step disagrees with the "
+          f"batch step: {rep['agreement']}")
+    check(lines[-1].startswith("VERDICT: "), "no verdict")
     return launches
 
 
@@ -2791,6 +3058,8 @@ def main() -> int:
             ui = gradio_ui(dev, work)
             adapt = model_adapters(dev, work)
             progs = chip_programs(dev)
+            knn = exact_knn(dev, smi)
+            ovl = overlap_trace(dev, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2798,7 +3067,8 @@ def main() -> int:
 
     source = "luciddreamer_tpu_torch/csrc/{}.cu".format
     launches = {k: train["launches"][k] + dream[k] + zoe[k] + shard[k]
-                + view[k] + ui[k] + adapt[k] + progs[k] for k in KERNELS}
+                + view[k] + ui[k] + adapt[k] + progs[k] + ovl[k]
+                for k in BLEND_KERNELS}
     launches["blend_fwd"] += k1["serve_launches"]
     rows = [
         {"name": "blend_fwd", "route": "cuda", "source": source("blend_fwd"),
@@ -2816,12 +3086,14 @@ def main() -> int:
          "replaces": "luciddreamer_tpu/render/binning.py:234",
          "launches": launches["repack_cols"], "max_abs_err": k3_err,
          **train["repack_cols"]},
+        knn,
     ]
     print(f"[done] launches by path: serving {{'blend_fwd': "
           f"{k1['serve_launches']}}}, training {train['launches']}, dream to "
           f"video {dream}, dream with ZoeD_N {zoe}, sharded training "
           f"{shard}, viewer {view}, Gradio UI {ui}, model adapters {adapt}, "
-          f"the JAX package's chip programs {progs}; "
+          f"the JAX package's chip programs {progs}, the overlap twin "
+          f"{ovl}, the exact knn {{'knn3_exact': {knn['launches']}}}; "
           f"K1-K3 on band "
           f"{shard_band}: max |d| {shard_errs}")
     print(json.dumps({"kernels": rows}))

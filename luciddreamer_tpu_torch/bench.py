@@ -92,15 +92,35 @@ def launch_counts() -> dict:
             "repack_cols": cuda_repack.repack_cols.launches}
 
 
+def events_ms(fn, sleep_ms, calls, align=None) -> float:
+    """Median device ms by CUDA events around each of ``calls`` calls of
+    ``fn`` on the current card, each enqueued behind a device-side sleep of
+    ``sleep_ms`` (longer than the call's enqueue), so that the events time
+    the device's own work and never a wait for the host.  ``align``, when
+    given, is called before each sleep: a collective that lines up the
+    ranks' streams, so that every rank's sleep ends at once."""
+    pairs = []
+    for _ in range(calls):
+        if align is not None:
+            align()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e6 * sleep_ms))            # ~2e6 cycles a ms
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
 def steady(fn, device, k1: int, k2: int, reps: int) -> dict:
     """Per-step ms of ``s -> fn(s)`` chained on a scalar ``s``, after one
     warm-up call.  ``wall_ms``: the K-step protocol on the host's clock, K
     calls and one read of ``s``, (best of K2 - best of K1) / (K2 - K1).
-    ``device_ms`` (on the card, else None): the median over ``reps * k2``
-    calls of CUDA events around one call, each enqueued behind a
-    device-side sleep longer than its enqueue, so that the events time the
-    device's own work and never a wait for the host.  Runs ``1 + reps *
-    (k1 + k2)`` calls, and ``reps * k2`` more on the card."""
+    ``device_ms`` (on the card, else None): ``events_ms`` over ``reps *
+    k2`` calls, each behind a sleep of twice ``wall_ms`` and 5 ms.  Runs
+    ``1 + reps * (k1 + k2)`` calls, and ``reps * k2`` more on the card."""
     zero = torch.zeros((), device=device)
 
     def wall(k):
@@ -116,17 +136,12 @@ def steady(fn, device, k1: int, k2: int, reps: int) -> dict:
     wall_ms = (best(k2) - best(k1)) / (k2 - k1)
     if device.type != "cuda":
         return {"wall_ms": wall_ms, "device_ms": None}
-    pairs, s = [], zero
-    for _ in range(reps * k2):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(2e6 * (2 * wall_ms + 5)))   # ~2e6 cycles a ms
-        start.record()
-        s = fn(s)
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize(device)
-    device_ms = float(np.median([a.elapsed_time(b) for a, b in pairs]))
+    chain = [zero]
+
+    def call():
+        chain[0] = fn(chain[0])
+
+    device_ms = events_ms(call, 2 * wall_ms + 5, reps * k2)
     return {"wall_ms": wall_ms, "device_ms": device_ms}
 
 

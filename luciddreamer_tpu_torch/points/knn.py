@@ -1,13 +1,18 @@
-"""Exact k-nearest-neighbour squared distances (the twin of
-``luciddreamer_tpu/points/knn.py``).
+"""k-nearest-neighbour squared distances by the matrix-product formula (the
+twin of ``luciddreamer_tpu/points/knn.py``).
 
 For every point, the squared distances to its k nearest other alive points,
 used to initialise Gaussian scales.  The N x N distance matrix is streamed
 in (row block x column block) tiles as |r|^2 + |c|^2 - 2 r.c, the product
 by ``torch.matmul`` in full fp32 (TF32 is switched off around it), with a
-running top-k.  Exact, O(N^2) operations and O(row block x column block)
-memory.  The default blocks are larger than the JAX package's: each block
-is a Python-level step here, and the result does not depend on them.
+running top-k.  O(N^2) operations and O(row block x column block) memory.
+It is not exact: the fp32 formula cancels where |r|^2 and |c|^2 dwarf the
+distance, and loses about 1% on the app's clouds (more far from the
+origin).  The exact counterpart, with coordinate differences, is
+``points/knn_exact.py``; ``create_from_pcd`` keeps this one, as the JAX
+package's does.  The default blocks are larger than the JAX package's:
+each block is a Python-level step here, and the result does not depend on
+them.
 """
 from __future__ import annotations
 

@@ -410,3 +410,47 @@ def test_entry_and_bench_step_on_the_card(dev):
     after = bench.launch_counts()
     assert not bool(out["overflow"]) and bool(torch.isfinite(s))
     assert {k: after[k] - before[k] for k in after} == dict.fromkeys(after, 1)
+
+
+def test_exact_knn_kernel_matches_its_plain_version(dev):
+    """knn3_exact on 20k seeded points bit-equal to its plain version (the
+    same operations in the same order, -fmad=false), one launch."""
+    from luciddreamer_tpu_torch.points import knn_exact
+
+    pts = torch.as_tensor(np.random.default_rng(3).normal(size=(20_000, 3))
+                          .astype(np.float32), device=dev)
+    before = knn_exact.mean_sq_dist_3nn_exact.launches
+    out = knn_exact.mean_sq_dist_3nn_exact(pts)
+    torch.cuda.synchronize()
+    assert knn_exact.mean_sq_dist_3nn_exact.launches == before + 1
+    assert torch.equal(out, knn_exact.mean_sq_dist_3nn_exact_torch(pts))
+
+
+def test_grad_overlap_report_in_a_world_of_one(dev):
+    """The overlap twin in an NCCL world of one at a small size: no
+    collective window, K1-K3 once per step in each trace, the two steps
+    agreeing, a verdict."""
+    import socket
+
+    import torch.distributed as dist
+
+    from luciddreamer_tpu_torch import grad_overlap
+    from luciddreamer_tpu_torch.parallel import make_mesh, multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert multihost.initialize(f"127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        rep = grad_overlap.run(make_mesh(1, 1, device=dev), dev,
+                               capacity=20_000, size=256, pair_cap=200_000,
+                               steps=2, warmup=1)
+    finally:
+        dist.destroy_process_group()
+    for name in ("batch", "overlapped"):
+        assert rep[name]["windows"] == 0 and not rep[name]["overflow"]
+        assert rep[name]["kernels"] == dict.fromkeys(
+            ("blend_fwd", "blend_bwd", "repack_cols"), 1.0)
+        assert rep[name]["device_ms"] > 0
+    assert rep["agreement"]["ok"], rep["agreement"]
+    assert grad_overlap.report_lines(rep)[-1].startswith("VERDICT: neither")
