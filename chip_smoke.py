@@ -4,7 +4,8 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
 
 1. Set-up: prints the card's name and power limit, builds the kernels K1
    (``csrc/blend_fwd.cu``), K2 (``csrc/blend_bwd.cu``), K3
-   (``csrc/repack_cols.cu``) and the exact knn (``csrc/knn3_exact.cu``)
+   (``csrc/repack_cols.cu``), the exact knn (``csrc/knn3_exact.cu``) and
+   the preprocess pair (``csrc/preprocess_fwd.cu``, ``preprocess_bwd.cu``)
    with nvcc, one process each, all at once, into
    ``build/kernels/``, and prints the build time, ptxas's lines and the
    blocks per SM that its registers and shared memory imply.
@@ -14,7 +15,8 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    saves it to PLY and loads it back through the port's app class, and
    renders the first 30 frames of the ``llff`` path at 512x512 through
    ``video.render_frames(device="cuda")``.  K1's launch count over that run
-   must equal the frame count; the frames must be finite and not blank.
+   and the preprocess forward kernel's must equal the frame count (the
+   backward's 0); the frames must be finite and not blank.
 4. K1 against its plain version on frame 0 of the 1M scene: mean |d rgb|
    <= 1e-5, max |d rgb| <= 2e-2, n_contrib equal on >= 99.9% of pixels (the
    kernel multiplies T pair by pair, the plain version by chunk cumprod,
@@ -48,14 +50,28 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    gradient, ``backend="cuda"`` against ``backend="torch"`` (the plain
    forward and backward through the same autograd Function), all six
    parameter groups within 5e-4 of the group's max, at 20k and 1M.
+6 (b). The preprocess kernels (``render/cuda_preprocess.py``; not TPU
+   kernels: the JAX package leaves its preprocess to XLA) against their
+   plain versions at llff frame 0, on the bench scene at 20k and 1M, for
+   SH degrees 0-3 and degree 3 at scale modifier 1.3 with a mean2d offset:
+   radius, tile rects, tiles touched and visibility equal on every row,
+   the float outputs within 1e-6 of each output's max |ref| (the kernel
+   follows the plain version's operations in order under -fmad=false);
+   the backward, on seeded cotangents, against the plain backward and
+   against autograd of the plain forward, every gradient group within
+   1e-5 of its max (the sums run in another order), and exactly 0 past
+   the active degree.  Then both at 1M, degree 3 (the bench step's shape),
+   two rounds of 20 launches, against their bytes bound (each input read
+   once, each output written once) and the plain versions' ms.
 7. Training path: the bench scene padded to capacity 1.2M with dead rows;
    targets are its renders at the first 4 llff poses; the trained scene is
    the same with features_dc and opacity perturbed from seed 43;
    ``GSConfig(iterations=40, densify_from_iter=10,
    densification_interval=10)`` and ``Trainer(device="cuda")`` with its
    default pair budget.  Every loss finite, the mean of the last 5 below
-   the first 5, the alive count changed by densify, K1, K2 and K3 launched
-   once per step run, and no overflowed step committed.  Then
+   the first 5, the alive count changed by densify, K1, K2, K3 and the two
+   preprocess kernels launched once per step run, and no overflowed step
+   committed.  Then
    ``create_from_pcd`` on 400k points, timed, its knn checked on 1,000
    rows against a float64 brute force.
 8. Training times at the main-path shape, device ms by events and host
@@ -255,15 +271,17 @@ NVIDIA GPU.  Run from the root of a checkout: ``python3 chip_smoke.py``.
    window (a world of one sends nothing); the two steps agree (loss 1e-5
    relative, Adam's first moments 5e-4 of each group's max).
 
-Prints the kernels line (``launches``: for K1-K3 the sum of each kernel's
-counts over the ten main-path runs, phases 3, 7, 9, 10, 11, 13, 14, 15, 16
-and 17 (b); for ``knn3_exact`` its three calls in 17 (a)) and the card
-line, then the result line last.
+Prints the kernels line (``launches``: for K1-K3 and the preprocess
+kernels the sum of each kernel's counts over the ten main-path runs,
+phases 3, 7, 9, 10, 11, 13, 14, 15, 16 and 17 (b), in each of which every
+render must have run the preprocess kernels; for ``knn3_exact`` its three
+calls in 17 (a)) and the card line, then the result line last.
 Exits non-zero, printing no result, when any phase fails or no CUDA device
 is present.
 """
 import contextlib
 import ctypes
+import dataclasses
 import importlib.util
 import json
 import re
@@ -292,7 +310,11 @@ TRAIN_VIEWS = 4
 TRAIN_ITERS = 40
 PCD_POINTS = 400_000          # the largest point cloud the app builds from
 BLEND_KERNELS = ("blend_fwd", "blend_bwd", "repack_cols")
-KERNELS = BLEND_KERNELS + ("knn3_exact",)
+PRE_KERNELS = ("preprocess_fwd", "preprocess_bwd")
+KERNELS = BLEND_KERNELS + ("knn3_exact",) + PRE_KERNELS
+# the preprocess kernels' launches summed over the main-path runs that
+# ``counts`` reads (phases 3 and 7 add theirs in main)
+PRE_LAUNCHES = dict.fromkeys(PRE_KERNELS, 0)
 
 # ops that gather rows of a tensor into a new one
 GATHER_OPS = {"aten::index", "aten::index_select", "aten::gather",
@@ -511,17 +533,20 @@ def serving(bg, dev, ply_path):
     print(f"[serve] scene built, saved and loaded in {time.time() - t0:.1f} s")
 
     torch.cuda.synchronize()
-    cuda_blend.blend_fwd.launches = 0
+    zero_counts()
     t0 = time.time()
     rgbs, depths = render_frames(app.params, cams, bg, active_sh_degree=3,
                                  device="cuda")
     torch.cuda.synchronize()
     main_s = time.time() - t0
     k1_launches = cuda_blend.blend_fwd.launches
+    pre_launches = pre_counts()
     print(f"[serve] {N_FRAMES} frames in {main_s:.2f} s host time, "
-          f"K1 launches {k1_launches}")
+          f"K1 launches {k1_launches}, preprocess {pre_launches}")
     check(k1_launches == N_FRAMES,
           f"K1 launched {k1_launches} times for {N_FRAMES} frames")
+    check(pre_launches == {"preprocess_fwd": N_FRAMES, "preprocess_bwd": 0},
+          f"preprocess launches {pre_launches} for {N_FRAMES} frames")
     check(len(rgbs) == N_FRAMES and rgbs[0].shape == (H, W, 3),
           "render_frames returned the wrong frames")
     covered = [float((d > 0).mean()) for d in depths]
@@ -597,7 +622,8 @@ def serving(bg, dev, ply_path):
           f"{k1_design_bytes / roofline.HBM_BYTES_PER_S * 1e3:.5f} ms at the "
           "peak rate")
     record = {
-        "serve_launches": k1_launches, "max_abs_err": k1_err,
+        "serve_launches": k1_launches, "serve_pre_launches": pre_launches,
+        "max_abs_err": k1_err,
         "ms": min(r["k1"][0] for r in rounds), "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": bound_by, "bytes_bound_ms": both["bytes"],
         "operations_bound_ms": both["operations"],
@@ -829,6 +855,207 @@ def check_vjp(pairs, d_rows):
           + "; fp32 prefix sum " + " ".join(f"{v:.2e}" for v in e32.tolist()))
     check(float(e64.max()) <= 1e-5, "the gather VJP disagrees with float64")
     return k3_err
+
+
+PRE_FLOAT_TOL = 1e-6    # forward float outputs, of each output's max |ref|
+PRE_GRAD_TOL = 1e-5     # each gradient group, of the group's max |ref|
+
+
+def preprocess_inputs(params):
+    return (params.xyz, params.features_dc, params.features_rest,
+            params.scaling, params.rotation, params.opacity)
+
+
+def rel_max(out, ref):
+    """max |out - ref| / max |ref| (0 for two all-zero tensors)."""
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    diff = float((out - ref).abs().max()) if ref.numel() else 0.0
+    return diff / scale if scale > 0 else (0.0 if diff == 0 else float("inf"))
+
+
+def check_preprocess_case(params, cam, tag, deg, scale_modifier=1.0,
+                          offset=None):
+    """Both preprocess kernels against their plain versions (and the
+    backward against autograd of the plain forward) on one scene and SH
+    degree: integer outputs equal on every row, float outputs within
+    PRE_FLOAT_TOL and every gradient group within PRE_GRAD_TOL of its max.
+    Returns the largest |d| of the forward's floats and of the gradients."""
+    from luciddreamer_tpu_torch.core.types import ProcessedGaussians
+    from luciddreamer_tpu_torch.render import cuda_preprocess as cp
+
+    raw = preprocess_inputs(params)
+    P = params.capacity
+    camt = cp.pack_camera(cam)
+    with torch.no_grad():
+        out = cp.preprocess_fwd(*raw, params.alive, camt, cam.width,
+                                cam.height, deg, 16, scale_modifier, 0.2,
+                                offset)
+        ref = cp.preprocess_fwd_torch(*raw, params.alive, cam, deg, 16,
+                                      scale_modifier, 0.2, offset)
+    torch.cuda.synchronize()
+    unequal, ferr, fabs = {}, {}, 0.0
+    for f in dataclasses.fields(ProcessedGaussians):
+        a, b = getattr(out, f.name), getattr(ref, f.name)
+        if a.dtype == torch.float32:
+            ferr[f.name] = rel_max(a, b)
+            fabs = max(fabs, float((a - b).abs().max()))
+            check(torch.equal(torch.isfinite(a), torch.isfinite(b)),
+                  f"preprocess_fwd: non-finite {f.name} at {tag}")
+        else:
+            unequal[f.name] = int((a != b).sum())
+    dev = params.xyz.device
+    g = torch.Generator(device=dev).manual_seed(5 + deg)
+    cot = [torch.randn(s, generator=g, device=dev)
+           for s in ((P, 2), (P,), (P, 3), (P,), (P, 3))]
+    with torch.no_grad():
+        got = cp.preprocess_bwd(*raw, camt, cam.width, cam.height, deg,
+                                scale_modifier, *cot,
+                                with_offset=offset is not None)
+        plain = cp.preprocess_bwd_torch(*raw, cam, deg, scale_modifier, *cot)
+    leaves = [t.detach().clone().requires_grad_(True) for t in raw]
+    off = None if offset is None else offset.clone().requires_grad_(True)
+    proc = cp.preprocess_fwd_torch(*leaves, params.alive, cam, deg, 16,
+                                   scale_modifier, 0.2, off)
+    loss = sum((o * c).sum() for o, c in zip(
+        (proc.mean2d, proc.depth, proc.conic, proc.opacity, proc.rgb), cot))
+    auto = torch.autograd.grad(loss, leaves + ([off] if off is not None else []))
+    torch.cuda.synchronize()
+    names = ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity",
+             "mean2d_offset")
+    gerr = {n: (rel_max(a, b), rel_max(a, c))
+            for n, a, b, c in zip(names, got, plain, auto) if a is not None}
+    gabs = max(float((a - b).abs().max()) for a, b in zip(got, plain)
+               if a is not None and a.numel())
+    n_act = (deg + 1) ** 2
+    print(f"[pre] {tag} degree {deg}: integer outputs unequal {unequal}; "
+          "float |d| / max " + " ".join(f"{k} {v:.2e}" for k, v in ferr.items())
+          + "; gradient |d| / max against plain | autograd "
+          + " ".join(f"{k} {a:.2e}|{b:.2e}" for k, (a, b) in gerr.items()))
+    check(not any(unequal.values()),
+          f"preprocess_fwd's integer outputs differ at {tag} degree {deg}")
+    check(max(ferr.values()) <= PRE_FLOAT_TOL,
+          f"preprocess_fwd disagrees with its plain version at {tag} degree {deg}")
+    check(max(max(v) for v in gerr.values()) <= PRE_GRAD_TOL,
+          f"preprocess_bwd disagrees at {tag} degree {deg}")
+    check(not got[2][:, n_act - 1:].any(),
+          f"preprocess_bwd wrote a gradient past degree {deg}")
+    return fabs, gabs
+
+
+def autograd_attribution(params, cam, cot):
+    """What the backward kernel replaced: autograd's backward of the plain
+    forward at the bench step's shape, device ms and kernels launched, and
+    of it the SH colour's part (sh_to_rgb_clamped of the concatenated
+    coefficients, whose 16 coefficient reads each zero-fill a (P, 16, 3)
+    gradient that autograd then adds up)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from luciddreamer_tpu_torch.core import sh as shlib
+    from luciddreamer_tpu_torch.render import cuda_preprocess as cp
+
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in preprocess_inputs(params)]
+    proc = cp.preprocess_fwd_torch(*leaves, params.alive, cam, 3)
+    outs = (proc.mean2d, proc.depth, proc.conic, proc.opacity, proc.rgb)
+    rgb = shlib.sh_to_rgb_clamped(3, torch.cat(leaves[1:3], dim=1), leaves[0],
+                                  cam.campos)
+    parts = {
+        "the whole preprocess": lambda: torch.autograd.grad(
+            outs, leaves, cot, retain_graph=True, allow_unused=True),
+        "its SH colour": lambda: torch.autograd.grad(
+            rgb, leaves[:3], cot[4], retain_graph=True),
+    }
+    for name, fn in parts.items():
+        ms = timed(fn, 5)[0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launched = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        print(f"[pre] autograd's backward of the plain forward at 1M, degree "
+              f"3, {name}: {ms:.4f} ms of device time, {launched} kernels")
+
+
+def preprocess_kernels(cams, dev, smi):
+    """Phase 6 (b): the preprocess kernels against their plain versions at
+    20k and on the 1M bench scene, SH degrees 0-3 (and degree 3 at scale
+    modifier 1.3 with a mean2d offset), then their times at 1M, degree 3,
+    the bench step's shape, beside their bounds and the plain versions'.
+    Returns the two kernels-line rows without their launches."""
+    from luciddreamer_tpu_torch.render import cuda_preprocess as cp
+
+    cam = cams[0]
+    errs = {"preprocess_fwd": 0.0, "preprocess_bwd": 0.0}
+    for P in (P_SMALL, P_FULL):
+        params = make_scene(P, seed=42, device=dev)
+        for deg in range(4):
+            f, b = check_preprocess_case(params, cam, f"{P // 1000}k", deg)
+            errs["preprocess_fwd"] = max(errs["preprocess_fwd"], f)
+            errs["preprocess_bwd"] = max(errs["preprocess_bwd"], b)
+        f, b = check_preprocess_case(params, cam, f"{P // 1000}k x1.3 offset",
+                                     3, 1.3, torch.zeros((P, 2), device=dev))
+        errs["preprocess_fwd"] = max(errs["preprocess_fwd"], f)
+        errs["preprocess_bwd"] = max(errs["preprocess_bwd"], b)
+
+    # times at the bench step's shape: 1M, degree 3, no offset
+    raw = preprocess_inputs(params)
+    camt = cp.pack_camera(cam)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cot = [torch.randn(s, generator=g, device="cuda")
+           for s in ((P_FULL, 2), (P_FULL,), (P_FULL, 3), (P_FULL,), (P_FULL, 3))]
+    fns = {
+        "preprocess_fwd": lambda: cp.preprocess_fwd(*raw, params.alive, camt,
+                                                    W, H, 3),
+        "preprocess_bwd": lambda: cp.preprocess_bwd(*raw, camt, W, H, 3, 1.0,
+                                                    *cot, with_offset=False),
+    }
+    plains = {
+        "preprocess_fwd": lambda: cp.preprocess_fwd_torch(*raw, params.alive,
+                                                          cam, 3),
+        "preprocess_bwd": lambda: cp.preprocess_bwd_torch(*raw, cam, 3, 1.0,
+                                                          *cot),
+    }
+    with torch.no_grad():
+        outs = {k: fn() for k, fn in fns.items()}
+        rounds = [{k: timed(f, 20)[0] for k, f in fns.items()} for _ in range(2)]
+        plain_ms = {k: timed(f, 5)[0] for k, f in plains.items()}
+    autograd_attribution(params, cam, cot)
+    fwd_out = outs["preprocess_fwd"]
+    in_bytes = sum(t.nbytes for t in raw) + camt.nbytes
+    nbytes = {
+        "preprocess_fwd": in_bytes + params.alive.nbytes + sum(
+            getattr(fwd_out, f.name).nbytes
+            for f in dataclasses.fields(fwd_out)),
+        "preprocess_bwd": in_bytes + sum(t.nbytes for t in cot) + sum(
+            t.nbytes for t in outs["preprocess_bwd"] if t is not None),
+    }
+    flops = {"preprocess_fwd": P_FULL * roofline.PREPROCESS_FLOPS,
+             "preprocess_bwd": P_FULL * roofline.PREPROCESS_BWD_FLOPS}
+    rows = {}
+    for k in fns:
+        bound, by, both = bound_of(nbytes[k], flops[k], 0)
+        ms = min(r[k] for r in rounds)
+        print(f"[pre] {k} at 1M, degree 3: device ms " + " ".join(
+            f"{r[k]:.4f}" for r in rounds) + f" (two rounds of 20); plain "
+            f"version {plain_ms[k]:.4f} ms; bytes {nbytes[k]} -> "
+            f"{both['bytes']:.5f} ms, operations {flops[k]} -> "
+            f"{both['operations']:.5f} ms at the peak rates: bound {by}, "
+            f"{bound / ms:.1%} of it | {smi}")
+        rows[k] = {
+            "name": k, "route": "cuda",
+            "source": f"luciddreamer_tpu_torch/csrc/{k}.cu",
+            "replaces": "luciddreamer_tpu/render/preprocess.py:24",
+            "note": ("not a TPU kernel: the JAX package's preprocess, "
+                     + ("fused by XLA" if k == "preprocess_fwd"
+                        else "differentiated by JAX")),
+            "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms[k],
+            "bound_ms": bound, "bound_by": by,
+            "bytes_bound_ms": both["bytes"],
+            "operations_bound_ms": both["operations"], "library_ms": None,
+        }
+    return rows
 
 
 # ---------------------------------------------------------- dream to video
@@ -1310,9 +1537,7 @@ def training(app, cams, dev):
     tr._step = counted_step
     losses = []
     torch.cuda.synchronize()
-    cuda_blend.blend_fwd.launches = 0
-    cuda_blend.blend_bwd.launches = 0
-    cuda_repack.repack_cols.launches = 0
+    zero_counts()
     t0 = time.time()
     state = tr.run(views, callback=lambda it, st, loss: losses.append(loss))
     torch.cuda.synchronize()
@@ -1320,12 +1545,14 @@ def training(app, cams, dev):
     launches = {"blend_fwd": cuda_blend.blend_fwd.launches,
                 "blend_bwd": cuda_blend.blend_bwd.launches,
                 "repack_cols": cuda_repack.repack_cols.launches}
+    pre_launches = pre_counts()
     tr._step = inner_step
     steps = len(step_calls)
     losses = [float(v) for v in losses]
     alive_after = int(state.params.num_alive)
     print(f"[train] {TRAIN_ITERS} iterations ({steps} steps run) in "
-          f"{train_s:.2f} s host time; launches {launches}; pair_cap "
+          f"{train_s:.2f} s host time; launches {launches}, preprocess "
+          f"{pre_launches}; pair_cap "
           f"{tr.pair_cap}; overflow seen {tr.last_overflow}")
     print(f"[train] loss first 5 {np.round(losses[:5], 5).tolist()} last 5 "
           f"{np.round(losses[-5:], 5).tolist()}; alive {alive_before} -> "
@@ -1335,6 +1562,8 @@ def training(app, cams, dev):
     check(alive_after != alive_before, "densify did not change the population")
     check(all(v == steps for v in launches.values()),
           f"kernel launches {launches} differ from the {steps} steps run")
+    check(pre_launches == dict.fromkeys(PRE_KERNELS, steps),
+          f"preprocess launches {pre_launches} for the {steps} steps run")
     check(int(state.step) == TRAIN_ITERS and int(state.adam.count) == TRAIN_ITERS,
           "an overflowed step was committed or a step went missing")
 
@@ -1498,7 +1727,7 @@ def training(app, cams, dev):
     print(f"[time] K3 work: bytes {k3_bytes}; bound {k3_bound:.5f} ms -> {k3_by}")
     best = lambda k: min(r[k][0] for r in rounds)
     return {
-        "launches": launches,
+        "launches": launches, "pre_launches": pre_launches,
         "blend_bwd": {"ms": best("k2"), "plain_ms": k2_plain_ms,
                       "bound_ms": k2_bound, "bound_by": k2_by,
                       "bytes_bound_ms": k2_both["bytes"],
@@ -1520,17 +1749,34 @@ SHARD_CHUNK = 128
 SHARD_PAIR_CAP = 9_600_000    # Trainer's default at capacity 1.2M
 
 
+def pre_counts():
+    from luciddreamer_tpu_torch.render import cuda_preprocess
+
+    return {k: getattr(cuda_preprocess, k).launches for k in PRE_KERNELS}
+
+
 def counts():
+    """K1-K3's launches since ``zero_counts``; the preprocess kernels' are
+    added to PRE_LAUNCHES, and each must have run where a render did (its
+    forward with K1, its backward with K2)."""
     from luciddreamer_tpu_torch.bench import launch_counts
 
-    return launch_counts()
+    k = launch_counts()
+    pre = pre_counts()
+    check((pre["preprocess_fwd"] > 0) >= (k["blend_fwd"] > 0)
+          and (pre["preprocess_bwd"] > 0) >= (k["blend_bwd"] > 0),
+          f"a render ran without the preprocess kernels: {pre} beside {k}")
+    for name, n in pre.items():
+        PRE_LAUNCHES[name] += n
+    return k
 
 
 def zero_counts():
-    from luciddreamer_tpu_torch.render import cuda_blend, cuda_repack
+    from luciddreamer_tpu_torch.render import cuda_blend, cuda_preprocess, cuda_repack
 
     for c in (cuda_blend.blend_fwd, cuda_blend.blend_bwd,
-              cuda_repack.repack_cols):
+              cuda_repack.repack_cols, cuda_preprocess.preprocess_fwd,
+              cuda_preprocess.preprocess_bwd):
         c.launches = 0
 
 
@@ -3013,6 +3259,7 @@ def main() -> int:
             k3_err = check_vjp(pairs, d_rows)
             del pairs, d_rows
             whole_gradient(app.params, cams[0], "1M llff frame 0")
+            pre_rows = preprocess_kernels(cams, dev, smi)
 
             train = training(app, cams, dev)
             del app
@@ -3036,6 +3283,7 @@ def main() -> int:
                 + view[k] + ui[k] + adapt[k] + progs[k] + ovl[k]
                 for k in BLEND_KERNELS}
     launches["blend_fwd"] += k1["serve_launches"]
+    pre_launches = dict(PRE_LAUNCHES)
     rows = [
         {"name": "blend_fwd", "route": "cuda", "source": source("blend_fwd"),
          "replaces": "luciddreamer_tpu/render/pallas_blend.py:152",
@@ -3054,12 +3302,18 @@ def main() -> int:
          **train["repack_cols"]},
         knn,
     ]
+    for name in PRE_KERNELS:
+        pre_launches[name] += (k1["serve_pre_launches"][name]
+                               + train["pre_launches"][name])
+        rows.append(dict(pre_rows[name], launches=pre_launches[name]))
     print(f"[done] launches by path: serving {{'blend_fwd': "
           f"{k1['serve_launches']}}}, training {train['launches']}, dream to "
           f"video {dream}, dream with ZoeD_N {zoe}, sharded training "
           f"{shard}, viewer {view}, Gradio UI {ui}, model adapters {adapt}, "
           f"the JAX package's chip programs {progs}, the overlap twin "
-          f"{ovl}, the exact knn {{'knn3_exact': {knn['launches']}}}; "
+          f"{ovl}, the exact knn {{'knn3_exact': {knn['launches']}}}, "
+          f"the preprocess kernels {pre_launches} (serving "
+          f"{k1['serve_pre_launches']}, training {train['pre_launches']}); "
           f"K1-K3 on band "
           f"{shard_band}: max |d| {shard_errs}")
     print(json.dumps({"kernels": rows}))

@@ -48,8 +48,9 @@ K3_BYTES_COUNT = 8                 # the live count
 # projection 31, 3D covariance 78, its EWA projection 145, conic 9, sigma
 # 9, radius 2, the 1/255 level 13, tile rects 51, SH degree 3 to RGB 160.
 PREPROCESS_FLOPS = 19 + 7 + 31 + 78 + 145 + 9 + 9 + 2 + 13 + 51 + 160
-# Its backward, by autograd: about two operations per forward operation
-# (each elementwise op's VJP multiplies and accumulates).
+# Its backward (one kernel, csrc/preprocess_bwd.cu, on the card): about two
+# operations per forward operation, each forward operation's derivative a
+# multiply and an accumulate; a count of the function, not of the kernel.
 PREPROCESS_BWD_FLOPS = 2 * PREPROCESS_FLOPS
 # The binning VJP per live pair: one add into each of the 10 channels'
 # prefix sums (K3 itself moves data and computes nothing).

@@ -1,6 +1,9 @@
 """Tiled renderer: preprocess -> binning -> tile blend -> image.
 
-Differentiable end to end.  Backends:
+Differentiable end to end.  The preprocess is chosen by the tensors'
+device, not by ``backend``: on CUDA tensors its forward and backward are
+the two hand-written kernels of render.cuda_preprocess, elsewhere the
+plain PyTorch forward differentiated by autograd.  Backends of the blend:
   * ``cuda``  - the hand-written blend kernels K1 (forward) and K2
                 (backward) of render.cuda_blend, which read the sorted
                 pairs' attribute rows through the sort's owner index; for

@@ -1,7 +1,7 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA kernels K1, K2 and K3
-on the card against their plain PyTorch versions, the CUDA path with no
-fallback and no stream-order copy of the attribute rows, and a few
-training steps on the card.
+"""Tests of the port that need an NVIDIA GPU: the CUDA kernels K1, K2, K3
+and the preprocess pair on the card against their plain PyTorch versions,
+the CUDA path with no fallback and no stream-order copy of the attribute
+rows, and a few training steps on the card.
 
 They carry the ``cuda`` marker and skip where there is no CUDA device.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -19,7 +19,7 @@ from luciddreamer_tpu_torch.core.types import GaussianParams
 from luciddreamer_tpu_torch.model.gaussians import DensifyStats, grow_capacity
 from luciddreamer_tpu_torch.model.optim import adam_init
 from luciddreamer_tpu_torch.render import (
-    binning, cuda_blend, cuda_repack, torch_blend,
+    binning, cuda_blend, cuda_preprocess, cuda_repack, torch_blend,
 )
 from luciddreamer_tpu_torch.render.blend_cases import (
     EDGE_CASES, EDGE_GRID_X, blend_work, edge_case,
@@ -211,6 +211,50 @@ def test_kernels_match_their_plain_versions(dev, case):
         _k1_case(case, dev)
     else:
         _k2_case(case, dev)
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+def test_preprocess_kernels_match_their_plain_versions(dev, deg):
+    """The preprocess forward and backward kernels against their plain
+    versions on a 20k scene at 512x512 (chip_smoke.py phase 6 (b)): the
+    integer outputs equal on every row, the floats within 1e-6 of each
+    output's max, every gradient group within 1e-5 of its max against the
+    plain backward and against autograd of the plain forward, nothing past
+    the active degree; at degree 3 also at scale modifier 1.3 with an
+    offset."""
+    from chip_smoke import check_preprocess_case
+
+    params = _scene(20_000, 3, dev)
+    cam = make_camera(np.eye(4), 0.8279, 0.8279, 512, 512, device=dev)
+    check_preprocess_case(params, cam, "20k", deg)
+    if deg == 3:
+        check_preprocess_case(params, cam, "20k x1.3 offset", deg, 1.3,
+                              torch.zeros((20_000, 2), device=dev))
+
+
+def test_preprocess_kernels_launch_once_per_render_and_step(monkeypatch, dev):
+    """On CUDA tensors a render's preprocess runs the forward kernel once
+    and its backward the backward kernel once, never the plain versions;
+    with a mean2d offset its gradient comes from the kernel too."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    for name in ("preprocess_fwd_torch", "preprocess_bwd_torch"):
+        monkeypatch.setattr(cuda_preprocess, name, refuse)
+    params = _scene(300, 0, dev)
+    offset = torch.zeros((300, 2), device=dev, requires_grad=True)
+    before = (cuda_preprocess.preprocess_fwd.launches,
+              cuda_preprocess.preprocess_bwd.launches)
+    out = render_tiled(params, _camera(dev), torch.zeros(3, device=dev),
+                       mean2d_offset=offset)
+    (out["render"].sum() + out["depth"].sum()).backward()
+    torch.cuda.synchronize()
+    after = (cuda_preprocess.preprocess_fwd.launches,
+             cuda_preprocess.preprocess_bwd.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1]
+    assert offset.grad is not None and bool(offset.grad.abs().sum() > 0)
+    for t in params.parameters():
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
 
 
 def test_trainer_steps_on_the_card(dev):
